@@ -1,0 +1,36 @@
+"""Host planning for the port: numpy copies of ``repro.core`` — BDM,
+Basic, BlockSplit, PairRange, Sorted Neighborhood and the two-source
+extension — without the jit-able ``*_jnp`` twins."""
+from . import enumeration  # noqa: F401
+from .assignment import greedy_lpt, greedy_lpt_hetero, makespan_stats  # noqa: F401
+from .basic import BasicPlan, plan_basic  # noqa: F401
+from .bdm import (  # noqa: F401
+    blocked_layout,
+    compute_bdm,
+    entity_indices,
+    update_bdm,
+)
+from .block_split import BlockSplitPlan, plan_block_split  # noqa: F401
+from .sorted_neighborhood import (  # noqa: F401
+    SortedNeighborhoodPlan,
+    band_pair_count,
+    pairs_of_band_range,
+    plan_sorted_neighborhood,
+)
+from .pair_range import (  # noqa: F401
+    PairRangePlan,
+    entity_range_matrix,
+    map_output_size,
+    pairs_of_range,
+    plan_pair_range,
+    range_block_intervals,
+)
+from .two_source import (  # noqa: F401
+    BlockSplit2Plan,
+    PairRange2Plan,
+    TwoSourceBDM,
+    pairs_of_range_2src,
+    plan_block_split_2src,
+    plan_pair_range_2src,
+    range_block_segments_2src,
+)

@@ -1,0 +1,238 @@
+"""Plan IR: the MatchJob every planner lowers into.
+
+A *match job* is the strategy-agnostic description of a pairwise
+workload: a flat int64 table of **task rectangles** over the blocked
+feature layout(s), each carrying the same predicate vocabulary the
+kernel evaluates per cell (validity window, triangular mask, PairRange
+corner cuts, the Sorted Neighborhood band) plus the planner's reducer
+attribution. Lowering a plan to a MatchJob is the ONLY strategy-aware
+step in the execution stack — everything downstream (tiling, cost
+modeling, scheduling, kernel dispatch) is one shared implementation.
+
+Task columns (TASK_NCOLS = 11, int64):
+
+    a0 alen  b0 blen  tri  lb_r lb_c  ub_r ub_c  band  red
+
+``[a0, a0+alen) × [b0, b0+blen)`` is the task's cell window in global
+rows of the a-/b-side matrices; ``tri`` demands row < col (self-join
+tasks); the lb/ub pairs encode the corner cuts ``(row > lb_r) | (col >=
+lb_c)`` and ``(row < ub_r) | (col <= ub_c)``; ``band > 0`` demands
+``col − row < band``. ``red`` is the planner's reduce-task attribution
+(:data:`RED_FREE` = "unassigned — let the scheduler place my tiles").
+
+The catalog columns (NCOLS = 13) are owned by ``kernels.pair_sim`` —
+this module re-exports them so the rest of the system has a single
+import point. A numpy copy of ``repro.er.compiler.ir``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+from ...core.basic import BasicPlan
+from ...core.block_split import BlockSplitPlan
+from ...core.pair_range import PairRangePlan, range_block_segments
+from ...core.sorted_neighborhood import (SortedNeighborhoodPlan,
+                                         band_range_segment)
+from ...core.two_source import (BlockSplit2Plan, PairRange2Plan,
+                                range_block_segments_2src)
+from ...kernels.pair_sim import NCOLS
+
+__all__ = [
+    "NCOLS",
+    "A_TILE", "B_TILE", "R0", "R1", "C0", "C1", "TRI",
+    "LB_R", "LB_C", "UB_R", "UB_C", "BAND", "RED",
+    "TASK_NCOLS",
+    "T_A0", "T_ALEN", "T_B0", "T_BLEN", "T_TRI",
+    "T_LB_R", "T_LB_C", "T_UB_R", "T_UB_C", "T_BAND", "T_RED",
+    "NO_LB", "NO_UB", "RED_FREE",
+    "MatchJob",
+    "task_row",
+    "make_job",
+    "TileCatalog",
+    "plan_to_job",
+    "cross_job",
+]
+
+# Catalog column indices (mirrors kernels.pair_sim's layout comment).
+(A_TILE, B_TILE, R0, R1, C0, C1, TRI, LB_R, LB_C, UB_R, UB_C, BAND,
+ RED) = range(NCOLS)
+
+# Task column indices.
+TASK_NCOLS = 11
+(T_A0, T_ALEN, T_B0, T_BLEN, T_TRI, T_LB_R, T_LB_C, T_UB_R, T_UB_C,
+ T_BAND, T_RED) = range(TASK_NCOLS)
+
+NO_LB = -1           # rows are >= 0, so row > -1 always holds
+NO_UB = 2 ** 30      # rows are < 2^30, so row < 2^30 always holds
+RED_FREE = -1        # task has no planner attribution: scheduler's choice
+
+
+@dataclass(frozen=True)
+class MatchJob:
+    """A compiled plan, pre-tiling: T corner-cut task rectangles that
+    together cover every planned pair exactly once."""
+    tasks: np.ndarray      # (T, TASK_NCOLS) int64
+    n_rows_a: int          # LHS feature-matrix rows the tasks index into
+    n_rows_b: int          # RHS rows (== n_rows_a for self-join jobs)
+    r: int                 # planner reduce tasks (red column ∈ [0, r))
+    total_pairs: int       # planned pair count (exact, from the plan)
+    self_join: bool = True  # a-side and b-side are the same matrix
+
+    @property
+    def num_tasks(self) -> int:
+        return int(self.tasks.shape[0])
+
+
+@dataclass(frozen=True)
+class TileCatalog:
+    """A lowered job: T MXU tiles covering every planned pair once."""
+    tiles: np.ndarray      # (T, NCOLS) int32
+    block_m: int
+    block_n: int
+    n_rows_a: int          # LHS feature-matrix rows the tiles index into
+    n_rows_b: int          # RHS rows (== n_rows_a for single-source plans)
+    r: int                 # reduce tasks (tiles[:, RED] ∈ [0, r))
+    total_pairs: int       # planned pair count (exact, from the plan)
+
+    @property
+    def num_tiles(self) -> int:
+        return int(self.tiles.shape[0])
+
+
+def task_row(a0, alen, b0, blen, tri, red,
+              lb=(NO_LB, NO_LB), ub=(NO_UB, NO_UB), band=0):
+    return (int(a0), int(alen), int(b0), int(blen), int(tri),
+            int(lb[0]), int(lb[1]), int(ub[0]), int(ub[1]),
+            int(band), int(red))
+
+
+def make_job(rows, n_rows_a, n_rows_b, r, total, self_join=True) -> MatchJob:
+    tasks = (np.asarray(rows, np.int64) if rows
+             else np.zeros((0, TASK_NCOLS), np.int64))
+    return MatchJob(tasks=tasks, n_rows_a=int(n_rows_a),
+                    n_rows_b=int(n_rows_b), r=int(r),
+                    total_pairs=int(total), self_join=self_join)
+
+
+# ---------------------------------------------------------------------------
+# Per-strategy lowerings (the six former catalog_for_* builders)
+# ---------------------------------------------------------------------------
+
+def _job_basic(plan: BasicPlan) -> MatchJob:
+    """One triangular task per block with >= 1 pair, on its reducer."""
+    sizes = plan.block_sizes
+    estart = np.concatenate([np.zeros(1, np.int64), np.cumsum(sizes)[:-1]])
+    rows = [
+        task_row(estart[k], sizes[k], estart[k], sizes[k], True,
+                  plan.block_reducer[k])
+        for k in np.flatnonzero(sizes >= 2)
+    ]
+    n = int(sizes.sum())
+    return make_job(rows, n, n, plan.r, plan.total_pairs)
+
+
+def _job_block_split(plan: BlockSplitPlan) -> MatchJob:
+    """The match-task table is already task geometry — copy it over."""
+    rows = [
+        task_row(plan.task_a_start[t], plan.task_a_len[t],
+                  plan.task_b_start[t], plan.task_b_len[t],
+                  bool(plan.task_triangular[t]), plan.task_reducer[t])
+        for t in range(plan.task_block.shape[0])
+    ]
+    n = int(plan.block_sizes.sum())
+    return make_job(rows, n, n, plan.r, plan.total_pairs)
+
+
+def _job_pair_range(plan: PairRangePlan) -> MatchJob:
+    """Range k ∩ block = a corner-cut triangle segment (x_lo..x_hi columns,
+    prefix/suffix cuts at (x_lo, y_lo) / (x_hi, y_hi)) — O(1) scalars per
+    (range, block)."""
+    rows = []
+    for k in range(plan.r):
+        for blk, x_lo, y_lo, x_hi, y_hi in range_block_segments(plan, k):
+            e0 = int(plan.estart[blk])
+            n = int(plan.block_sizes[blk])
+            c0 = e0 + (y_lo if x_hi == x_lo else x_lo + 1)
+            c1 = e0 + (y_hi + 1 if x_hi == x_lo else n)
+            rows.append(task_row(
+                e0 + x_lo, x_hi - x_lo + 1, c0, c1 - c0, True, k,
+                lb=(e0 + x_lo, e0 + y_lo), ub=(e0 + x_hi, e0 + y_hi)))
+    n_rows = int(plan.block_sizes.sum())
+    return make_job(rows, n_rows, n_rows, plan.r, plan.total_pairs)
+
+
+def _job_sorted_neighborhood(plan: SortedNeighborhoodPlan) -> MatchJob:
+    """The window-w band over the sort order (features must be in
+    sorted-key order). Range k ∩ band = rows i_lo..i_hi with corner cuts
+    at (i_lo, j_lo) / (i_hi, j_hi), plus the band predicate
+    col − row < w."""
+    n, we = plan.n, plan.w_eff
+    rows = []
+    for k in range(plan.r):
+        seg = band_range_segment(plan, k)
+        if seg is None:
+            continue
+        i_lo, j_lo, i_hi, j_hi = seg
+        c0 = i_lo + 1
+        c1 = min(i_hi + we, n)
+        rows.append(task_row(
+            i_lo, i_hi - i_lo + 1, c0, c1 - c0, True, k,
+            lb=(i_lo, j_lo), ub=(i_hi, j_hi), band=we))
+    return make_job(rows, n, n, plan.r, plan.total_pairs)
+
+
+def _job_two_source(plan) -> MatchJob:
+    """Two-source R × S plans (paper Appendix I): the a-side indexes the
+    R blocked layout, the b-side the S layout — two *different* feature
+    matrices, so every task is rectangular (tri=False)."""
+    if isinstance(plan, BlockSplit2Plan):
+        rows = [
+            task_row(plan.task_a_start[t], plan.task_a_len[t],
+                      plan.task_b_start[t], plan.task_b_len[t],
+                      False, plan.task_reducer[t])
+            for t in range(plan.task_block.shape[0])
+        ]
+        return make_job(rows, plan.n_rows_r, plan.n_rows_s, plan.r,
+                    plan.total_pairs, self_join=False)
+    rows = []
+    for k in range(plan.r):
+        for blk, x_lo, y_lo, x_hi, y_hi in range_block_segments_2src(plan, k):
+            e0r = int(plan.er_start[blk])
+            e0s = int(plan.es_start[blk])
+            ns = int(plan.sizes_s[blk])
+            c0 = e0s + (y_lo if x_hi == x_lo else 0)
+            c1 = e0s + (y_hi + 1 if x_hi == x_lo else ns)
+            rows.append(task_row(
+                e0r + x_lo, x_hi - x_lo + 1, c0, c1 - c0, False, k,
+                lb=(e0r + x_lo, e0s + y_lo), ub=(e0r + x_hi, e0s + y_hi)))
+    return make_job(rows, plan.n_rows_r, plan.n_rows_s, plan.r,
+                plan.total_pairs, self_join=False)
+
+
+def cross_job(n_a: int, n_b: int, r: int = 1) -> MatchJob:
+    """Full cartesian A × B (the match_⊥(R, R_∅) job): one rectangular
+    task over two different matrices with no planner attribution — its
+    tiles are the scheduler's to place (RED_FREE; the legacy shim and
+    the round-robin policy spread them mod r)."""
+    rows = []
+    if n_a > 0 and n_b > 0:
+        rows.append(task_row(0, n_a, 0, n_b, False, RED_FREE))
+    return make_job(rows, n_a, n_b, max(r, 1), n_a * n_b, self_join=False)
+
+
+def plan_to_job(plan) -> MatchJob:
+    """Dispatch on plan type (Basic / BlockSplit / PairRange / SN / 2src)
+    — the single entry point subsuming the per-strategy builders."""
+    if isinstance(plan, BasicPlan):
+        return _job_basic(plan)
+    if isinstance(plan, BlockSplitPlan):
+        return _job_block_split(plan)
+    if isinstance(plan, PairRangePlan):
+        return _job_pair_range(plan)
+    if isinstance(plan, SortedNeighborhoodPlan):
+        return _job_sorted_neighborhood(plan)
+    if isinstance(plan, (BlockSplit2Plan, PairRange2Plan)):
+        return _job_two_source(plan)
+    raise TypeError(f"no job lowering for {type(plan).__name__}")
