@@ -23,8 +23,29 @@ Phases, in order; any failure raises and the script exits non-zero:
                versions and of a library yardstick, beside the card's
                bound for the same work.
 
-The last two lines of standard output are the kernel summary and
-``{"ok": true, "device": {...}}``. Without a card, or without the repo
+LM serving, granite-moe-1b-a400m (``repro_torch.serve.generate``):
+
+  LM-a kernels — the flash-attention and grouped-matmul kernels against
+               their plain versions at the main path's shapes (granite
+               prefill and decode, a ragged S, head dims 16/32/64/128, G = 4,
+               non-causal; grouped at block_t 128 and 8 with real routing),
+               bf16 and f32, within the JAX package's own tolerances;
+  LM-b wiring — granite at full width, 2 layers, f32: prefill + 4 greedy
+               decode steps on the kernel route against the plain versions
+               (logits atol 2e-3 / rtol 1e-2, equal tokens), and
+               prefill/decode consistency against ``forward``;
+  LM-c slice — granite at full width and depth, bf16, random weights from
+               seed 0: ``generate`` on 8 prompts of 2,048 tokens (32 new)
+               and 2 of 1,000 (8 new), with the launches of both kernels,
+               prefill seconds, decode ms per step, tokens/s and peak
+               memory, and the kernel-vs-plain prefill logits at full depth;
+  LM-d timing — CUDA-event times of the flash call of one prefill layer and
+               of the grouped call at block_t 128 (prefill) and 8 (decode),
+               beside the plain versions, a library yardstick and the
+               card's bound.
+
+Then 7, the summary. The last two lines of standard output are the kernel
+summary and ``{"ok": true, "device": {...}}``. Without a card, or without the repo
 beside it, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -76,6 +97,28 @@ def device_phase(torch):
     return name, count, smi
 
 
+def _kernel_label(fn):
+    """A readable name for a mangled kernel instance and the dynamic shared
+    memory its launch asks for."""
+    from repro_torch.kernels import flash_attention, pair_sim
+
+    m = re.search(r"catalog_kernelI(\w+?)Li(\d+)ELi(\d+)ELb(\d)", fn)
+    if m:
+        bm, bn = int(m.group(2)), int(m.group(3))
+        return (f"{'compact' if m.group(4) == '1' else 'mask'} "
+                f"{'bf16' if 'bfloat16' in m.group(1) else 'f32'} "
+                f"{bm}x{bn}", pair_sim.catalog_smem_bytes(bm, bn))
+    m = re.search(r"flash_(bf16|f32)ILi(\d+)E", fn)
+    if m:
+        bf16 = m.group(1) == "bf16"
+        return (f"flash {m.group(1)} D={m.group(2)}",
+                flash_attention.smem_bytes(int(m.group(2)), bf16))
+    m = re.search(r"grouped_mm_(bf16|f32)ILi(\d+)E", fn)
+    if m:
+        return f"grouped {m.group(1)} block_t={m.group(2)}", 0
+    return fn, 0
+
+
 def build_phase():
     from repro_torch.kernels import build, pair_sim
     phase("2 build")
@@ -94,17 +137,12 @@ def build_phase():
         blocks = re.findall(
             r"Function properties for (\S+)\n\s+(\d+) bytes stack frame, "
             r"(\d+) bytes spill stores, (\d+) bytes spill loads\n"
-            r"ptxas info\s+: Used (\d+) registers.*?(\d+) bytes smem",
+            r"ptxas info\s+: Used (\d+) registers(?:.*?(\d+) bytes smem)?",
             entry["log"])
         for fn, stack, st, ld, regs, smem in blocks:
-            m = re.search(r"catalog_kernelI(\w+?)Li(\d+)ELi(\d+)ELb(\d)", fn)
-            label = (f"{'compact' if m.group(4) == '1' else 'mask'} "
-                     f"{'bf16' if 'bfloat16' in m.group(1) else 'f32'} "
-                     f"{m.group(2)}x{m.group(3)}") if m else fn
-            bm_bn = (int(m.group(2)), int(m.group(3))) if m else None
-            dyn = (pair_sim.catalog_smem_bytes(*bm_bn) if bm_bn else 0)
+            label, dyn = _kernel_label(fn)
             log(f"  {name}: {label:<22} regs {regs:>3}  spill st/ld "
-                f"{st}/{ld} B  stack {stack} B  static smem {smem} B  "
+                f"{st}/{ld} B  stack {stack} B  static smem {smem or 0} B  "
                 f"dynamic smem {dyn} B")
     lib = pair_sim._lib()
     for bm, bn in pair_sim.GEOMETRY_LATTICE:
@@ -430,6 +468,413 @@ def timing_phase(torch, np, ds, stats):
 
 
 # ---------------------------------------------------------------------------
+# LM serving: granite-moe-1b-a400m through repro_torch.serve.generate
+# ---------------------------------------------------------------------------
+
+GRANITE = "granite-moe-1b-a400m"
+PEAK_BF16_FLOPS = 989e12   # H100 SXM, dense bf16 tensor cores
+FLASH_TOL = {"float32": 5e-4, "bfloat16": 3e-2}    # tests/test_kernels.py
+GROUPED_TOL = {"float32": 1e-4, "bfloat16": 5e-2}  # (the JAX package's own)
+LM_B_TOL = dict(atol=2e-3, rtol=1e-2)              # tests/test_arch_smoke.py
+LM_C_RUNS = ((8, 2048, 32), (2, 1000, 8))          # (prompts, length, new)
+LM_A_FLASH = (  # (B, H, KVH, S, D, causal), each in bf16 and f32
+    (8, 16, 8, 2048, 64, True),      # granite prefill (LM-c's first run)
+    (2, 16, 8, 1000, 64, True),      # ragged S (LM-c's second run)
+    (2, 16, 4, 512, 16, True), (2, 8, 8, 384, 32, True),
+    (1, 16, 4, 1024, 128, True),     # G = 4
+    (2, 16, 8, 1024, 64, False))
+
+
+def granite(torch, **over):
+    """granite-moe-1b-a400m at full width, random weights from seed 0 on
+    the card; ``over`` replaces config fields (depth, dtype, routes)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+
+    cfg = get_config(GRANITE).replace(**over)
+    gen = torch.Generator("cuda").manual_seed(0)
+    return cfg, get_model(cfg).init(cfg, gen, device="cuda")
+
+
+def routed_layout(torch, model, cfg, tokens):
+    """Real routing for the grouped kernel: layer 0's router on the normed
+    embeddings of ``tokens`` (B, S) → (x (T, d), tile-aligned xg (tp, d),
+    tile_expert, block_t, real rows T·k)."""
+    from repro_torch.models import moe
+    from repro_torch.models.layers import rms_norm
+
+    p = model.layers[0]
+    h = model.embed[tokens.reshape(-1)]
+    x = rms_norm(h, p.ln_mlp, cfg.rms_eps)
+    _, ids, _ = moe._route(p, x, cfg)
+    order, dst, te, tp, bt = moe.grouped_layout(ids, cfg.num_experts)
+    xg = torch.zeros((tp, x.shape[1]), dtype=x.dtype, device=x.device)
+    xg[dst] = x[order // cfg.top_k]
+    return xg, te, bt, ids.numel(), ids
+
+
+def lm_kernels_phase(torch, np):
+    """LM-a: both LM kernels against their plain versions on the card at
+    the main path's shapes; returns per-kernel max |kernel - plain|."""
+    from repro_torch.kernels import ops
+
+    phase("LM-a LM kernels vs plain versions (granite prefill/decode shapes)")
+    rng = np.random.default_rng(0)
+    errs = {"flash_attention": 0.0, "grouped_matmul": 0.0}
+    cases = {"flash_attention": 0, "grouped_matmul": 0}
+
+    def normal(shape, dtype, scale=1.0):
+        x = rng.standard_normal(shape).astype(np.float32) * scale
+        return torch.from_numpy(x).cuda().to(dtype)
+
+    for b, h, kvh, s, d, causal in LM_A_FLASH:
+        for name in ("bfloat16", "float32"):
+            dt = getattr(torch, name)
+            q, k, v = (normal((b, n, s, d), dt) for n in (h, kvh, kvh))
+            got = ops.attention(q, k, v, causal=causal, impl="cuda")
+            want = ops.attention(q, k, v, causal=causal, impl="torch")
+            err = (got.float() - want.float()).abs().max().item()
+            log(f"flash {name:<8} B={b} H={h} KVH={kvh} S={s} D={d} "
+                f"causal={causal}: max_abs_err {err:.3e} "
+                f"(tolerance {FLASH_TOL[name]})")
+            if not err <= FLASH_TOL[name]:
+                raise AssertionError("flash kernel disagrees with its "
+                                     "plain version")
+            errs["flash_attention"] = max(errs["flash_attention"], err)
+            cases["flash_attention"] += 1
+
+    cfg, model = granite(torch, n_layers=1)
+    ex = model.layers[0].experts
+    b0, s0 = LM_C_RUNS[0][:2]
+    for b, s in ((b0, s0), (b0, 1)):      # prefill (block_t 128), decode (8)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s))).cuda()
+        xg, te, bt, real, _ = routed_layout(torch, model, cfg, toks)
+        for name in ("bfloat16", "float32"):
+            dt = getattr(torch, name)
+            for wname in ("w_gate", "w_down"):
+                w = getattr(ex, wname).to(dt)
+                x = xg.to(dt)
+                if wname == "w_down":    # its input is the expert hidden
+                    x = normal((xg.shape[0], w.shape[1]), dt)
+                got = ops.grouped_matmul(x, te, w, block_t=bt, impl="cuda")
+                want = ops.grouped_matmul(x, te, w, block_t=bt,
+                                          impl="torch")
+                err = (got.float() - want.float()).abs().max().item()
+                log(f"grouped {name:<8} block_t={bt} rows {x.shape[0]} "
+                    f"(real {real}) d={x.shape[1]} {wname} F={w.shape[2]}: "
+                    f"max_abs_err {err:.3e} (tolerance {GROUPED_TOL[name]})")
+                if not err <= GROUPED_TOL[name]:
+                    raise AssertionError("grouped kernel disagrees with its "
+                                         "plain version")
+                errs["grouped_matmul"] = max(errs["grouped_matmul"], err)
+                cases["grouped_matmul"] += 1
+    torch.cuda.synchronize()
+    del model
+    return errs, cases
+
+
+def _prefill_and_decode(torch, model, cfg, tokens, steps):
+    """prefill + ``steps`` greedy decode steps through the serving entry
+    points; returns (logits per step (B, V) f32, tokens per step)."""
+    from repro_torch.models import get_model
+    from repro_torch.serve import make_decode_step, make_prefill
+
+    b, s = tokens.shape
+    cache = get_model(cfg).init_cache(cfg, b, s + steps + 1)
+    logits, cache = make_prefill(cfg)(model, {"tokens": tokens}, cache)
+    out, toks = [logits[:, -1].float()], []
+    decode = make_decode_step(cfg)
+    for _ in range(steps):
+        toks.append(out[-1].argmax(-1))
+        logits, cache = decode(model, toks[-1][:, None], cache)
+        out.append(logits[:, -1].float())
+    return out, toks
+
+
+def lm_wiring_phase(torch, np):
+    """LM-b: granite at full width, 2 layers, f32: the kernel route against
+    the plain versions on the card, and prefill/decode consistency."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import get_model
+
+    phase("LM-b model wiring: granite full width, n_layers=2, float32")
+    kern, model = granite(torch, n_layers=2, param_dtype="float32",
+                          compute_dtype="float32", attn_impl="kernel",
+                          moe_dispatch="grouped")
+    plain = kern.replace(attn_impl="plain", kernel_impl="torch")
+    rng = np.random.default_rng(1)
+    tokens = torch.from_numpy(rng.integers(0, kern.vocab, (4, 256))).cuda()
+    ops.reset_launch_counts()
+    lk, tk = _prefill_and_decode(torch, model, kern, tokens, 4)
+    counts = ops.launch_counts()
+    lp, tpl = _prefill_and_decode(torch, model, plain, tokens, 4)
+    if ops.launch_counts() != counts:
+        raise AssertionError("the plain route launched a kernel")
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(lk, lp)):
+        worst = max(worst, (a - b).abs().max().item())
+        if not torch.allclose(a, b, **LM_B_TOL):
+            raise AssertionError(f"LM-b step {i}: kernel and plain logits "
+                                 f"differ by {(a - b).abs().max().item()}")
+    if not all(torch.equal(a, b) for a, b in zip(tk, tpl)):
+        raise AssertionError("LM-b: greedy tokens differ")
+    log(f"kernel route (launches {counts}) vs plain versions: prefill + 4 "
+        f"decode steps, B=4 S=256: max |logit diff| {worst:.3e} within atol "
+        f"{LM_B_TOL['atol']} / rtol {LM_B_TOL['rtol']}; greedy tokens equal "
+        f"{[t.tolist() for t in tk]}")
+    # prefill/decode consistency (tests/test_arch_smoke.py) on the kernel
+    # route: forward over the prompt and over prompt + next token
+    mod = get_model(kern)
+    full = mod.forward(model, {"tokens": tokens}, kern)[:, -1].float()
+    nxt = torch.cat([tokens, tk[0][:, None]], dim=1)
+    full2 = mod.forward(model, {"tokens": nxt}, kern)[:, -1].float()
+    d1 = (lk[0] - full).abs().max().item()
+    d2 = (lk[1] - full2).abs().max().item()
+    if not (torch.allclose(lk[0], full, **LM_B_TOL)
+            and torch.allclose(lk[1], full2, **LM_B_TOL)):
+        raise AssertionError(f"prefill/decode inconsistent: {d1}, {d2}")
+    log(f"prefill vs forward max diff {d1:.3e}; decode step vs forward "
+        f"max diff {d2:.3e} (atol {LM_B_TOL['atol']} / rtol "
+        f"{LM_B_TOL['rtol']})")
+    del model
+    return worst
+
+
+def device_breakdown(torch, fn):
+    """Run ``fn`` under ``torch.profiler`` (CPU + CUDA activity) and split
+    the device's kernel time into the two LM kernels and everything else
+    (PyTorch's own kernels, copies): (wall s, {category: device s}). The
+    profiler's own cost is in the wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    cats = {"flash_attention": 0.0, "grouped_matmul": 0.0, "other": 0.0,
+            "device_events": 0, "other_by_name": {}}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        key = ("flash_attention" if "flash_" in e.name else
+               "grouped_matmul" if "grouped_mm" in e.name else "other")
+        sec = e.time_range.elapsed_us() * 1e-6
+        cats[key] += sec
+        cats["device_events"] += 1
+        if key == "other":
+            by = cats["other_by_name"]
+            by[e.name[:70]] = by.get(e.name[:70], 0.0) + sec
+    return wall, cats
+
+
+def _log_breakdown(label, wall, cats, steps=1):
+    busy = cats["flash_attention"] + cats["grouped_matmul"] + cats["other"]
+    if busy == 0:
+        log(f"{label}: the profiler saw no device time (not measured)")
+        return
+    log(f"{label} (torch.profiler, per step): wall {wall / steps * 1e3:.2f} "
+        f"ms; device busy {busy / steps * 1e3:.2f} ms = flash "
+        f"{cats['flash_attention'] / steps * 1e3:.2f} + grouped "
+        f"{cats['grouped_matmul'] / steps * 1e3:.2f} + other kernels "
+        f"{cats['other'] / steps * 1e3:.2f} ms; device idle "
+        f"{1 - busy / wall:.1%} of the wall time; "
+        f"{cats['device_events'] / steps:.0f} kernels and copies a step")
+    top = sorted(cats["other_by_name"].items(), key=lambda kv: -kv[1])[:6]
+    log("  largest other kernels (ms per step): " + "; ".join(
+        f"{name} {sec / steps * 1e3:.2f}" for name, sec in top))
+
+
+def lm_slice_phase(torch, np):
+    """LM-c: granite at full width and depth, bf16, flash + grouped kernels,
+    through ``generate``; returns the launches of the main path's runs."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import get_model
+    from repro_torch.serve import generate, make_decode_step, make_prefill
+
+    phase("LM-c the slice: generate, granite-moe-1b-a400m full width and "
+          "depth, bf16, attn_impl=kernel, moe_dispatch=grouped, seed 0")
+    cfg, model = granite(torch, attn_impl="kernel", moe_dispatch="grouped")
+    n_params = sum(p.numel() for p in model.parameters())
+    n_matrix = sum(p.numel() for p in model.parameters() if p.dim() > 1)
+    log(f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads "
+        f"/ {cfg.n_kv_heads} KV, {cfg.num_experts} experts top-"
+        f"{cfg.top_k}, vocab {cfg.vocab}: {n_params:,} parameters "
+        f"({n_params * 2 / 1e9:.2f} GB bf16; {n_matrix:,} in matrices, "
+        f"ModelConfig.param_count() {cfg.param_count():,})")
+    if n_matrix != cfg.param_count():
+        raise AssertionError("parameter count differs from the config's")
+    rng = np.random.default_rng(0)
+    launches = {"flash_attention": 0, "grouped_matmul": 0,
+                "grouped_matmul[block_t=8]": 0,
+                "grouped_matmul[block_t=128]": 0}
+    rows = []
+    for b, s, new in LM_C_RUNS:
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s))).cuda()
+        batch = {"tokens": tokens}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = generate(model, cfg, batch, new)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        for k in launches:
+            launches[k] += counts[k]
+        if out.shape != (b, new) or not bool(
+                ((out >= 0) & (out < cfg.vocab)).all()):
+            raise AssertionError(f"generate returned {tuple(out.shape)} or "
+                                 "ids outside the vocabulary")
+        # warm timings: prefill alone, then generate again (same tokens:
+        # the grouped combine has no atomics)
+        cache = get_model(cfg).init_cache(cfg, b, s + new)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = make_prefill(cfg)(model, batch, cache)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError("non-finite prefill logits")
+        t0 = time.perf_counter()
+        again = generate(model, cfg, batch, new)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        if not torch.equal(out, again):
+            raise AssertionError("two greedy runs gave different tokens")
+        decode_ms = (gen_s - prefill_s) / max(new - 1, 1) * 1e3
+        log(f"B={b} prompts x {s} tokens, {new} new: launches {counts}; "
+            f"first generate {first_s:.3f} s (cold); prefill {prefill_s:.3f} s;"
+            f" generate {gen_s:.3f} s -> decode {decode_ms:.2f} ms/token-step"
+            f" ({b * new / gen_s:.1f} tokens/s, {b * s / prefill_s:,.0f} "
+            f"prompt tokens/s in prefill); peak memory {peak / 2**30:.2f} GiB;"
+            f" tokens[0][:8] {out[0, :8].tolist()}; repeat run equal")
+        rows.append(dict(b=b, s=s, new=new, prefill_s=prefill_s,
+                         generate_s=gen_s, decode_ms=decode_ms,
+                         tokens_per_s=b * new / gen_s, peak_bytes=peak,
+                         launches=counts))
+        if b == LM_C_RUNS[0][0]:
+            cache = get_model(cfg).init_cache(cfg, b, s + 5)
+            wall, cats = device_breakdown(
+                torch, lambda: make_prefill(cfg)(model, batch, cache))
+            _log_breakdown(f"prefill B={b} S={s}", wall, cats)
+            step = make_decode_step(cfg)
+            nxt = out[:, :1].long()
+
+            def decode4():
+                for _ in range(4):
+                    step(model, nxt, cache)
+            wall, cats = device_breakdown(torch, decode4)
+            _log_breakdown(f"decode step B={b} at position {s}", wall, cats,
+                           steps=4)
+            plain = cfg.replace(attn_impl="plain", kernel_impl="torch")
+            cache = get_model(plain).init_cache(plain, b, s + 1)
+            ref_logits, _ = make_prefill(plain)(model, batch, cache)
+            diff = (logits.float() - ref_logits.float()).abs().max().item()
+            log(f"full depth, bf16: kernel vs plain-version prefill logits "
+                f"max |diff| {diff:.3e} (informative; logit scale "
+                f"{ref_logits.float().abs().max().item():.2f})")
+            rows[-1]["plain_logit_diff"] = diff
+    if not (launches["flash_attention"] > 0
+            and launches["grouped_matmul[block_t=8]"] > 0
+            and launches["grouped_matmul[block_t=128]"] > 0):
+        raise AssertionError(f"the serving path missed a kernel: {launches}")
+    log(f"launches over both runs: {launches}")
+    return cfg, model, launches, rows
+
+
+def lm_timing_phase(torch, np, cfg, model):
+    """LM-d: CUDA-event times at the LM-c shapes: one layer's flash call on
+    a B=8 x 2048 prefill, the grouped call at block_t 128 (that prefill)
+    and at 8 (a B=8 decode step), each beside its plain version, a library
+    yardstick and the card's bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+
+    phase("LM-d timing at the LM-c shapes (CUDA events)")
+    rng = np.random.default_rng(2)
+    b, s = LM_C_RUNS[0][:2]
+    h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, n, s, d)).astype(
+        np.float32)).cuda().to(torch.bfloat16) for n in (h, kvh, kvh))
+    kr = k.repeat_interleave(h // kvh, dim=1)
+    vr = v.repeat_interleave(h // kvh, dim=1)
+    pairs = b * h * s * (s + 1) // 2                # causal (q, k) pairs
+    flops = 4.0 * d * pairs
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    rows = {}
+
+    def row(name, kern, plain, library, lib_label, flops, nbytes, reps,
+            note):
+        p1 = _time_ms(torch, plain, max(2, reps // 10))
+        k1 = _time_ms(torch, kern, reps)
+        k2 = _time_ms(torch, kern, reps)
+        p2 = _time_ms(torch, plain, max(2, reps // 10))
+        lib_ms = _time_ms(torch, library, reps)
+        t_ops = flops / PEAK_BF16_FLOPS * 1e3
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        bound = max(t_ops, t_bytes)
+        by = "operations" if t_ops >= t_bytes else "bytes"
+        ms = (k1 + k2) / 2
+        log(f"{name} ({note}): kernel {k1:.4f} / {k2:.4f} ms  plain "
+            f"{p1:.4f} / {p2:.4f} ms  library_ms {lib_ms:.4f} ({lib_label})"
+            f"  bound {bound:.4f} ms ({by}: {flops / 1e9:.3f} GFLOP at 989 "
+            f"TFLOP/s bf16 = {t_ops:.4f} ms vs {nbytes / 1e6:.2f} MB at 3.35 "
+            f"TB/s = {t_bytes:.4f} ms) -> {flops / (ms * 1e-3) / 1e12:.1f} "
+            f"TFLOP/s, {bound / ms:.1%} of the bound")
+        return dict(ms=ms, plain_ms=(p1 + p2) / 2, bound_ms=bound,
+                    bound_by=by, library_ms=lib_ms, library=lib_label)
+
+    rows["flash_attention"] = row(
+        "flash_attention",
+        lambda: ops.attention(q, k, v, impl="cuda"),
+        lambda: ops.attention(q, k, v, impl="torch"),
+        lambda: F.scaled_dot_product_attention(q, kr, vr, is_causal=True),
+        f"torch SDPA, is_causal, on K/V repeated to {h} heads beforehand",
+        flops, nbytes, 20, f"B={b} H={h} KVH={kvh} S={s} D={d} bf16 causal, "
+        "one layer of the prefill")
+
+    ex = model.layers[0].experts
+    for bt_want, (bb, ss), reps in ((128, (b, s), 20), (8, (b, 1), 200)):
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (bb, ss))).cuda()
+        xg, te, bt, real, ids = routed_layout(torch, model, cfg, toks)
+        if bt != bt_want:
+            raise AssertionError(f"block_t {bt} where {bt_want} was meant")
+        w = ex.w_gate
+        used = int(torch.unique(ids).numel())
+        flops = 2.0 * real * w.shape[1] * w.shape[2]
+        nbytes = 2 * (real * w.shape[1] + real * w.shape[2]
+                      + used * w.shape[1] * w.shape[2])
+        # the yardstick: one torch.matmul per expert segment (host bounds
+        # read once, outside the timing)
+        tes = te.cpu().numpy()
+        segs = [(int(e), i * bt, (i + n) * bt) for e, i, n in zip(
+            *np.unique(tes, return_index=True),
+            np.unique(tes, return_counts=True)[1])]
+
+        def library(xg=xg, segs=segs, w=w):
+            return [torch.matmul(xg[a:z], w[e]) for e, a, z in segs]
+
+        key = f"grouped_matmul[block_t={bt}]"
+        rows[key] = row(
+            key,
+            lambda xg=xg, te=te, bt=bt: ops.grouped_matmul(
+                xg, te, w, block_t=bt, impl="cuda"),
+            lambda xg=xg, te=te, bt=bt: ops.grouped_matmul(
+                xg, te, w, block_t=bt, impl="torch"),
+            library, f"torch.matmul per expert segment, {len(segs)} calls",
+            flops, nbytes, reps,
+            f"w_gate d={w.shape[1]} F={w.shape[2]}, {xg.shape[0]} padded "
+            f"rows, {real} real (B={bb} x S={ss} x top-{cfg.top_k}), "
+            f"{used} experts used")
+    return rows
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not (SRC / "repro_torch" / "csrc" / "pair_sim.cu").is_file():
@@ -451,6 +896,14 @@ def main() -> int:
     ds, _, main_launches = ds1_phase(torch)
     overflow_launches = overflow_phase(ds)
     times = timing_phase(torch, np, ds, kstats)
+    del ds
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on for f32 matmuls; the f32 plain "
+                             "versions and LM-b assume it off")
+    lm_errs, lm_cases = lm_kernels_phase(torch, np)
+    lm_wiring_phase(torch, np)
+    cfg, model, lm_launches, _ = lm_slice_phase(torch, np)
+    lm_times = lm_timing_phase(torch, np, cfg, model)
 
     phase("7 summary")
     summary = []
@@ -472,6 +925,34 @@ def main() -> int:
             tolerance=f"exact except cells whose f64 score is within "
                       f"{NEAR} of the threshold",
             **times[kname]))
+    flash = lm_times["flash_attention"]
+    summary.append(dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:125",
+        launches=lm_launches["flash_attention"],
+        path="LM-c generate, granite-moe prefill (attn_impl=kernel)",
+        max_abs_err=lm_errs["flash_attention"],
+        compared_cases=lm_cases["flash_attention"],
+        tolerance=f"{FLASH_TOL['float32']} f32 / {FLASH_TOL['bfloat16']} "
+                  "bf16 vs the plain version",
+        **flash))
+    pre = lm_times["grouped_matmul[block_t=128]"]
+    dec = lm_times["grouped_matmul[block_t=8]"]
+    summary.append(dict(
+        name="grouped_matmul", route="cuda",
+        source="src/repro_torch/csrc/grouped_mm.cu",
+        replaces="src/repro/kernels/grouped_mm.py:58",
+        launches=lm_launches["grouped_matmul"],
+        launches_block_t_128=lm_launches["grouped_matmul[block_t=128]"],
+        launches_block_t_8=lm_launches["grouped_matmul[block_t=8]"],
+        path="LM-c generate, granite-moe MoE FFN (moe_dispatch=grouped); "
+             "times at block_t=128 (prefill), decode_* at block_t=8",
+        max_abs_err=lm_errs["grouped_matmul"],
+        compared_cases=lm_cases["grouped_matmul"],
+        tolerance=f"{GROUPED_TOL['float32']} f32 / "
+                  f"{GROUPED_TOL['bfloat16']} bf16 vs the plain version",
+        **pre, **{f"decode_{k}": v for k, v in dec.items()}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": summary}))

@@ -1,4 +1,4 @@
-"""Dispatcher over the catalog kernels and their plain versions.
+"""Dispatcher over the CUDA kernels and their plain versions.
 
 Every op takes ``impl``:
   * "auto"  — the CUDA kernel for CUDA tensors, the plain PyTorch version
@@ -15,11 +15,11 @@ from __future__ import annotations
 
 import torch
 
-from . import pair_sim, ref
+from . import flash_attention, grouped_mm, pair_sim, ref
 
 __all__ = ["IMPLS", "resolve_impl", "pair_scores_catalog",
-           "pair_scores_catalog_compact", "launch_counts",
-           "reset_launch_counts"]
+           "pair_scores_catalog_compact", "grouped_matmul", "attention",
+           "launch_counts", "reset_launch_counts"]
 
 IMPLS = ("auto", "cuda", "torch")
 
@@ -64,11 +64,48 @@ def pair_scores_catalog_compact(a, b, catalog, *, threshold: float = 0.8,
         block_n=block_n, capacity=capacity)
 
 
+def grouped_matmul(x, tile_expert, w, *, block_t: int = 128,
+                   impl: str = "auto"):
+    """MoE expert product over tile-aligned expert-sorted rows (see
+    ``grouped_mm.grouped_matmul``). The layout contract holds for both
+    routes."""
+    if resolve_impl(impl, x.device) == "torch":
+        grouped_mm.check_layout(x, tile_expert, w, block_t)
+        return ref.grouped_matmul_ref(x, tile_expert, w, block_t=block_t)
+    return grouped_mm.grouped_matmul(x, tile_expert, w, block_t=block_t)
+
+
+def attention(q, k, v, *, causal: bool = True, scale=None,
+              block_q: int = 512, block_k: int = 512, impl: str = "auto"):
+    """Softmax attention, q (B, H, S, D) over k, v (B, KVH, S, D), query
+    head h on KV head h // (H / KVH) (see
+    ``flash_attention.flash_attention``). The reference kernel's
+    non-causal contract holds for both routes."""
+    if resolve_impl(impl, q.device) == "torch":
+        flash_attention.check_contract(q, k, v, causal=causal,
+                                       block_q=block_q, block_k=block_k)
+        return ref.attention_ref(q, k, v, causal=causal, scale=scale)
+    return flash_attention.flash_attention(q, k, v, causal=causal,
+                                           scale=scale, block_q=block_q,
+                                           block_k=block_k)
+
+
+_COUNTERS = (pair_sim.LAUNCHES, flash_attention.LAUNCHES,
+             grouped_mm.LAUNCHES, grouped_mm.BLOCK_T_LAUNCHES)
+
+
 def launch_counts() -> dict:
-    """Kernel launches per CUDA kernel since the last reset."""
-    return dict(pair_sim.LAUNCHES)
+    """Kernel launches per CUDA kernel since the last reset, plus the
+    grouped kernel's launches per block_t (``grouped_matmul[block_t=8]``
+    and ``[block_t=128]``)."""
+    counts = {**pair_sim.LAUNCHES, **flash_attention.LAUNCHES,
+              **grouped_mm.LAUNCHES}
+    for bt, n in grouped_mm.BLOCK_T_LAUNCHES.items():
+        counts[f"grouped_matmul[block_t={bt}]"] = n
+    return counts
 
 
 def reset_launch_counts() -> None:
-    for k in pair_sim.LAUNCHES:
-        pair_sim.LAUNCHES[k] = 0
+    for counter in _COUNTERS:
+        for k in counter:
+            counter[k] = 0

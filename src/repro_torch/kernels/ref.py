@@ -1,12 +1,13 @@
-"""Plain PyTorch versions of the catalog kernels: the CPU path of the
-wrappers in ``pair_sim.py``, the oracle of the CPU tests, and what
+"""Plain PyTorch versions of the CUDA kernels: the CPU path of the
+dispatcher in ``ops.py``, the oracle of the CPU tests, and what
 ``chip_smoke.py`` holds each CUDA kernel against on the card.
 
 Ports of ``repro.kernels.ref``'s ``pair_scores_catalog_ref``,
-``pack_survivor_mask`` and ``pair_scores_catalog_compact_ref``: a gather of
+``pack_survivor_mask`` and ``pair_scores_catalog_compact_ref`` (a gather of
 the strips, an f32 ``einsum`` with TF32 off, the catalog predicate, and a
-cumsum-plus-scatter pack with a dump slot. The threshold is compared in
-f32, as the kernel and the JAX package do.
+cumsum-plus-scatter pack with a dump slot; the threshold is compared in
+f32, as the kernel and the JAX package do), of ``grouped_matmul_ref`` and
+of ``attention_ref``.
 """
 from __future__ import annotations
 
@@ -16,7 +17,8 @@ import numpy as np
 import torch
 
 __all__ = ["pair_scores_catalog_ref", "pack_survivor_mask",
-           "pair_scores_catalog_compact_ref", "full_precision"]
+           "pair_scores_catalog_compact_ref", "grouped_matmul_ref",
+           "attention_ref", "full_precision"]
 
 
 @contextlib.contextmanager
@@ -85,3 +87,37 @@ def pair_scores_catalog_compact_ref(a, b, catalog, *, threshold: float = 0.8,
     masks = pair_scores_catalog_ref(a, b, catalog, threshold=threshold,
                                     block_m=block_m, block_n=block_n)
     return pack_survivor_mask(masks, capacity)
+
+
+def grouped_matmul_ref(x, tile_expert, w, *, block_t: int = 128):
+    """x (T, d) tile-aligned expert-sorted rows; w (E, d, F). Same (T, F)
+    as ``grouped_mm.grouped_matmul``: each row tile times its expert's
+    weights, accumulated in f32 (TF32 off), cast to x's dtype. The JAX
+    reference gathers w per token; this gathers it per tile, which is the
+    same function in 1/block_t of the memory."""
+    t, d = x.shape
+    xt = x.reshape(t // block_t, block_t, d).to(torch.float32)
+    with full_precision():
+        out = torch.bmm(xt, w[tile_expert.long()].to(torch.float32))
+    return out.reshape(t, w.shape[2]).to(x.dtype)
+
+
+def attention_ref(q, k, v, *, causal: bool = True, scale=None):
+    """q (B, H, S, D); k, v (B, KVH, S, D). Plain softmax attention, h-major:
+    query head h reads KV head h // (H / KVH), as ``repeat`` gives it. f32
+    logits (TF32 off), softmax and p·v in f32, output in q's dtype."""
+    h, s, d = q.shape[1], q.shape[2], q.shape[3]
+    group = h // k.shape[1]
+    if scale is None:
+        scale = d ** -0.5
+    k = k.repeat_interleave(group, dim=1).to(torch.float32)
+    v = v.repeat_interleave(group, dim=1).to(torch.float32)
+    with full_precision():
+        logits = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32),
+                              k) * scale
+        if causal:
+            mask = torch.ones((s, s), dtype=torch.bool,
+                              device=q.device).tril()
+            logits = torch.where(mask, logits, -1e30)
+        p = torch.softmax(logits, dim=-1)
+        return torch.einsum("bhqk,bhkd->bhqd", p, v).to(q.dtype)

@@ -34,7 +34,8 @@ def test_no_jax_or_reference_import(path):
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.er, repro_torch.kernels, "
-            "repro_torch.convert; "
+            "repro_torch.convert, repro_torch.configs, repro_torch.models, "
+            "repro_torch.serve; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -141,8 +141,10 @@ def test_cpu_tensors_run_the_plain_version_without_launching():
                                              impl="auto", **kw)
     wp, wc = ref.pair_scores_catalog_compact_ref(a, a, cat, capacity=8, **kw)
     assert torch.equal(gp, wp) and torch.equal(gc, wc)
-    assert ops.launch_counts() == {"pair_scores_catalog": 0,
-                                   "pair_scores_catalog_compact": 0}
+    counts = ops.launch_counts()
+    assert {"pair_scores_catalog", "pair_scores_catalog_compact"} <= set(
+        counts)
+    assert not any(counts.values()), counts
     with pytest.raises(ValueError):
         ops.pair_scores_catalog(a, a, cat, impl="cuda")
     # the CUDA wrappers themselves take CUDA tensors only

@@ -1,6 +1,8 @@
 """Shared inputs of the port's parity tests: dyadic and unit-row features,
-random catalogs that exercise every predicate, and the skewed corpus of
-tests/test_executor_parity.py with and without key-less titles."""
+random catalogs that exercise every predicate, the skewed corpus of
+tests/test_executor_parity.py with and without key-less titles, and the
+serving round (prefill, one decode step, greedy generate) of the LM
+parity tests, run by the reference and by the port."""
 import numpy as np
 import torch
 
@@ -80,3 +82,62 @@ def keyless(titles, bid):
     for i in range(0, len(titles), 41):
         titles[i], bid[i] = "  ", -1
     return titles, bid
+
+
+# ---------------------------------------------------------------------------
+# LM serving parity (tests/test_torch_models*.py)
+# ---------------------------------------------------------------------------
+
+LM_B, LM_S, LM_NEW = 2, 16, 5
+
+
+def lm_batch(cfg, seed):
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (LM_B, LM_S))
+             .astype(np.int32)}
+    if cfg.family == "vlm":
+        batch["patches"] = rng.standard_normal(
+            (LM_B, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def lm_reference(jcfg, seed):
+    """The reference's random-init params (as numpy), its prefill logits,
+    the greedy next token, the decode-step logits and ``generate``'s
+    greedy tokens on one batch."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models import get_model
+    from repro.serve import generate
+
+    mod = get_model(jcfg)
+    params = mod.init(jcfg, jax.random.key(seed))
+    batch = lm_batch(jcfg, seed)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    prefix = jcfg.n_patches if jcfg.family == "vlm" else 0
+    cache = mod.init_cache(jcfg, LM_B, LM_S + prefix + LM_NEW)
+    last, cache = mod.prefill(params, jbatch, jcfg, cache)
+    nxt = jnp.argmax(last[:, -1:], axis=-1)
+    step, _ = mod.decode_step(params, nxt, cache, jcfg)
+    toks = generate(params, jcfg, jbatch, max_new_tokens=LM_NEW)
+    return (jax.tree.map(np.asarray, params), batch, np.asarray(last),
+            np.asarray(nxt), np.asarray(step), np.asarray(toks))
+
+
+def lm_port(cfg, tree, batch, nxt):
+    """The same round by the port on the CPU, on ``tree`` converted by
+    ``model_params_from``: (prefill logits, decode logits, tokens)."""
+    from repro_torch.convert import model_params_from
+    from repro_torch.models import get_model
+    from repro_torch.serve import generate, make_decode_step, make_prefill
+
+    model = model_params_from(tree, cfg, device="cpu")
+    prefix = cfg.n_patches if cfg.family == "vlm" else 0
+    cache = get_model(cfg).init_cache(cfg, LM_B, LM_S + prefix + LM_NEW,
+                                      device="cpu")
+    last, cache = make_prefill(cfg, device="cpu")(model, batch, cache)
+    step, cache = make_decode_step(cfg, device="cpu")(
+        model, torch.from_numpy(np.array(nxt)), cache)
+    assert cache["pos"] == LM_S + prefix + 1
+    toks = generate(model, cfg, batch, max_new_tokens=LM_NEW, device="cpu")
+    return last.numpy(), step.numpy(), toks.numpy()
