@@ -13,8 +13,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                catalogs from real plans (all four strategies, the match_⊥
                cross job, zero pad rows) over several geometries, widths,
                dtypes and capacities;
-  4. DS1     — ``run_er`` at the paper's DS1 size for every strategy, on
-               the catalog executor and on the reference executor;
+  4. DS1     — ``run_er`` at the paper's DS1 size for every strategy on
+               the catalog executor, against the reference executor for
+               PairRange and SN (Basic and BlockSplit against PairRange's
+               reference match set);
   5. overflow — DS1 PairRange with a 16-slot capacity, so chunks overflow
                and re-score through the dense-mask kernel;
   6. timing  — on the first 1024-tile chunk of the DS1 PairRange catalog
@@ -22,6 +24,31 @@ Phases, in order; any failure raises and the script exits non-zero:
                versions, then CUDA-event times of both, of the plain
                versions and of a library yardstick, beside the card's
                bound for the same work.
+
+The third slice (the dense kernel, tuning, the supervisor, the service):
+
+  D    dense — ``ops.pair_scores`` (the dense kernel) on the sweep of
+               tests/test_kernels.py, kernel_bench's shapes and the first
+               16,384 featurized DS1 titles (triangular, 128x128), f32 and
+               bf16, each against its plain version; launches counted on
+               those calls; CUDA-event times of the DS1 case beside the
+               plain version, a ``matmul`` yardstick and the bound;
+  ER-t tuned   — ``run_er(tune_tiles=True)`` at DS1 for every strategy:
+               the picked geometry, tiles, matches (equal to phase 4's) and
+               stage-1 kernel seconds beside 128x128's;
+  ER-f faults  — supervised ``run_er`` at DS1 PairRange on 4 logical
+               devices under a seeded fault script, without and with work
+               stealing: 7,788 matches, rounds, retries, lost tiles;
+  ER-s service — ``ERService`` over DS1 with the default
+               ``ServiceConfig``, 64 micro-batches (a null-key query, a
+               never-seen block, one batch of 512): streaming == batch
+               against ``run_er`` over corpus ++ queries, no build or load
+               in steady state, queries/s, p50/p99 ms per batch, launches
+               per batch, the device's idle share (``torch.profiler``); the
+               plain route on the card (equal but for near-threshold
+               pairs); ``ERBatcher`` with 4 submitting threads; the
+               supervised service under a fault script; the autotuned
+               service's pinned geometry.
 
 LM serving, granite-moe-1b-a400m (``repro_torch.serve.generate``):
 
@@ -44,7 +71,8 @@ LM serving, granite-moe-1b-a400m (``repro_torch.serve.generate``):
                beside the plain versions, a library yardstick and the
                card's bound.
 
-Then 7, the summary. The last two lines of standard output are the kernel
+Phases run in the order 1-6, D, ER-t, ER-f, ER-s, LM-a…d, then 7, the
+summary. The last two lines of standard output are the kernel
 summary and ``{"ok": true, "device": {...}}``. Without a card, or without the repo
 beside it, the script exits non-zero and prints no result.
 """
@@ -68,6 +96,7 @@ NEAR = 1e-6            # a kernel/plain disagreement is allowed only on cells
                        # whose f64 score lies within NEAR of the threshold
 PEAK_F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3
+PEAK_BF16_FLOPS = 989e12   # H100 SXM, dense bf16 tensor cores
 
 
 def log(*args):
@@ -113,6 +142,11 @@ def _kernel_label(fn):
         bf16 = m.group(1) == "bf16"
         return (f"flash {m.group(1)} D={m.group(2)}",
                 flash_attention.smem_bytes(int(m.group(2)), bf16))
+    m = re.search(r"dense_kernelI(\w+?)Li(\d+)ELi(\d+)E", fn)
+    if m:
+        bm, bn = int(m.group(2)), int(m.group(3))
+        return (f"dense {'bf16' if 'bfloat16' in m.group(1) else 'f32'} "
+                f"{bm}x{bn}", pair_sim.dense_smem_bytes(bm, bn))
     m = re.search(r"grouped_mm_(bf16|f32)ILi(\d+)E", fn)
     if m:
         return f"grouped {m.group(1)} block_t={m.group(2)}", 0
@@ -296,15 +330,22 @@ def ds1_phase(torch):
     truth = ds.true_pairs
     launches = {}
     rows = {}
-    for strategy in STRATEGIES:
+    refs = {}
+    # The reference executor runs for pair_range and SN only (the script's
+    # time limit); basic and block_split plan the same pairs as pair_range
+    # and are held to its reference match set.
+    for strategy in ("pair_range", "sorted_neighborhood", "basic",
+                     "block_split"):
         before = dict(stage1_stats)
         ops.reset_launch_counts()
         res = run_er(ds.titles, ERConfig(strategy=strategy), device="cuda")
         counts = ops.launch_counts()
         s1 = {k: stage1_stats[k] - before[k] for k in stage1_stats}
-        ref_res = run_er(ds.titles,
-                         ERConfig(strategy=strategy, executor="reference"),
-                         device="cuda")
+        if strategy in ("pair_range", "sorted_neighborhood"):
+            refs[strategy] = run_er(
+                ds.titles, ERConfig(strategy=strategy, executor="reference"),
+                device="cuda")
+        ref_res = refs.get(strategy, refs["pair_range"])
         if res.matches != ref_res.matches:
             raise AssertionError(
                 f"{strategy}: catalog and reference match sets differ "
@@ -323,8 +364,10 @@ def ds1_phase(torch):
             f"  upload {tm['upload_s']:.3f}  stage-1 kernel "
             f"{tm['stage1_s']:.3f}  decode {tm['decode_s']:.3f}  stage 2 "
             f"{tm['stage2_s']:.3f}  total {tm['total_s']:.3f}  "
-            f"(reference executor total "
-            f"{ref_res.extra['timings']['total_s']:.3f})")
+            + (f"(reference executor total "
+               f"{ref_res.extra['timings']['total_s']:.3f})"
+               if strategy in refs else
+               "(held to pair_range's reference match set)"))
         rows[strategy] = (res, s1)
         if strategy == "pair_range":
             launches.update(counts)
@@ -468,11 +511,460 @@ def timing_phase(torch, np, ds, stats):
 
 
 # ---------------------------------------------------------------------------
+# D: the dense pair_scores kernel
+# ---------------------------------------------------------------------------
+
+DENSE_TOL = {"float32": 1e-5, "bfloat16": 2e-2}   # tests/test_kernels.py
+DENSE_LARGE_N = 16_384
+
+
+def _dense_cases(torch, np, ds):
+    """(label, a, b, threshold, triangular, (bm, bn)) in the order phase D
+    drives them: the sweep of tests/test_kernels.py (threshold 0.3, blocks
+    64 and 128), kernel_bench's shapes (n 1,024 and 4,096, d 256,
+    triangular, threshold 0.8, tiles 128 and 256; unit rows, the kernel's
+    contract) and the first 16,384 featurized DS1 titles (triangular,
+    threshold 0.8, 128x128), each in f32 and bf16."""
+    from repro_torch.er.encode import ngram_features
+
+    rng = np.random.default_rng(0)
+
+    def unit(n, d):
+        x = rng.standard_normal((n, d)).astype(np.float32)
+        return torch.from_numpy(
+            x / np.linalg.norm(x, axis=1, keepdims=True)).cuda()
+
+    cases = []
+    for m, n, d in ((64, 64, 32), (200, 130, 64), (128, 128, 256),
+                    (257, 31, 128)):
+        for tri in (False, True):
+            a = unit(m, d)
+            b = a if tri else unit(n, d)
+            for block in (64, 128):
+                cases.append((f"sweep ({m},{m if tri else n},{d}) "
+                              f"tri={tri} {block}x{block}", a, b, 0.3, tri,
+                              (block, block)))
+    for n in (1024, 4096):
+        a = unit(n, 256)
+        for block in (128, 256):
+            cases.append((f"kernel_bench n={n} d=256 {block}x{block}", a, a,
+                          0.8, True, (block, block)))
+    feats = torch.from_numpy(ngram_features(
+        ds.titles[:DENSE_LARGE_N], dim=256)).cuda()
+    cases.append((f"DS1 first {DENSE_LARGE_N} titles 128x128", feats, feats,
+                  0.8, True, (128, 128)))
+    out = []
+    for label, a, b, thr, tri, geo in cases:
+        for dt in (torch.float32, torch.bfloat16):
+            name = str(dt).split(".")[-1]
+            out.append((f"{label} {name}", a.to(dt).contiguous(),
+                        b.to(dt).contiguous(), thr, tri, geo, name))
+    return out
+
+
+def _dense_check(torch, a, b, got, want, thr, name, label):
+    """Kernel vs plain version: a cell kept by one side only must have an
+    f64 score within NEAR of the threshold; cells both keep (or both drop)
+    agree within DENSE_TOL. Returns (max |diff| over those cells, flips,
+    kept cells)."""
+    flip = (got == 0) != (want == 0)
+    flips = int(flip.sum())
+    if flips:
+        i, j = flip.nonzero(as_tuple=True)
+        s = (a[i].double() * b[j].double()).sum(dim=1)
+        if not bool(((s - float(thr)).abs() <= NEAR).all()):
+            raise AssertionError(f"dense kernel disagrees off the "
+                                 f"threshold: {label}")
+    err = (got - want).abs().masked_fill_(flip, 0).max().item()
+    if not err <= DENSE_TOL[name]:
+        raise AssertionError(f"dense kernel: {label} max |diff| {err}")
+    return err, flips, int((got != 0).sum())
+
+
+def dense_phase(torch, np, ds):
+    """D: the dense kernel through ``ops.pair_scores`` on every case (the
+    main path: launches counted here), each held against the plain
+    version; then CUDA-event times of the large DS1 case."""
+    from repro_torch.kernels import ops, ref
+
+    phase("D dense pair_scores kernel vs plain version "
+          "(ops.pair_scores, src/repro/kernels/pair_sim.py:164)")
+    cases = _dense_cases(torch, np, ds)
+    stats = {"cases": 0, "near_flips": 0, "max_abs_err": 0.0}
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    outs = [ops.pair_scores(a, b, threshold=thr, triangular=tri,
+                            block_m=geo[0], block_n=geo[1], impl="auto")
+            for _, a, b, thr, tri, geo, _ in cases]
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()["pair_scores"]
+    if launches != len(cases):
+        raise AssertionError(f"pair_scores launched {launches} times for "
+                             f"{len(cases)} calls")
+    for (label, a, b, thr, tri, geo, name), got in zip(cases, outs):
+        want = ops.pair_scores(a, b, threshold=thr, triangular=tri,
+                               impl="torch")
+        err, flips, kept = _dense_check(torch, a, b, got, want, thr, name,
+                                        label)
+        if tri and bool(got.tril().any()):
+            raise AssertionError(f"dense kernel kept a cell on or below "
+                                 f"the diagonal: {label}")
+        stats["cases"] += 1
+        stats["near_flips"] += flips
+        stats["max_abs_err"] = max(stats["max_abs_err"], err)
+        if "DS1" in label or "kernel_bench" in label:
+            log(f"{label}: kept {kept} cells, max |kernel - plain| {err:.3e}"
+                f" (tolerance {DENSE_TOL[name]}), {flips} near-threshold "
+                f"flips")
+        del want
+    del outs
+    log(f"{stats['cases']} cases equal to the plain version within "
+        f"{DENSE_TOL['float32']} f32 / {DENSE_TOL['bfloat16']} bf16 "
+        f"(cells kept by one side only: {stats['near_flips']}, each within "
+        f"{NEAR} of the threshold); main-path launches {launches}; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    rows = {}
+    for label, a, b, thr, tri, geo, name in cases:
+        if "DS1" not in label:
+            continue
+        n, d = a.shape
+        flops = 2.0 * d * n * (n - 1) / 2
+        nbytes = a.numel() * a.element_size() + n * n * 4  # a is b
+        peak = PEAK_F32_FLOPS if name == "float32" else PEAK_BF16_FLOPS
+        t_ops = flops / peak * 1e3
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        bound = max(t_ops, t_bytes)
+        by = "operations" if t_ops >= t_bytes else "bytes"
+        kw = dict(threshold=thr, triangular=tri)
+
+        def kern(a=a, b=b, kw=kw, geo=geo):
+            return ops.pair_scores(a, b, block_m=geo[0], block_n=geo[1],
+                                   impl="cuda", **kw)
+
+        def plain(a=a, b=b, kw=kw):
+            return ops.pair_scores(a, b, impl="torch", **kw)
+
+        def library(a=a, b=b, thr=thr):
+            with ref.full_precision():
+                s = torch.matmul(a.float(), b.float().T)
+            return torch.where(s >= thr, s, 0.0).triu(1)
+
+        p1 = _time_ms(torch, plain, 3)
+        k1 = _time_ms(torch, kern, 5)
+        k2 = _time_ms(torch, kern, 5)
+        p2 = _time_ms(torch, plain, 3)
+        lib_ms = _time_ms(torch, library, 3)
+        ms = (k1 + k2) / 2
+        rows[name] = dict(ms=ms, plain_ms=(p1 + p2) / 2, bound_ms=bound,
+                          bound_by=by, library_ms=lib_ms)
+        log(f"{label}: kernel {k1:.3f} / {k2:.3f} ms  plain {p1:.3f} / "
+            f"{p2:.3f} ms  library_ms {lib_ms:.3f} (torch.matmul in f32, "
+            f"TF32 off, then where and triu(1))  bound {bound:.3f} ms ({by}:"
+            f" {flops / 1e9:.2f} GFLOP at {peak / 1e12:.0f} TFLOP/s = "
+            f"{t_ops:.3f} ms vs {nbytes / 1e9:.3f} GB at 3.35 TB/s = "
+            f"{t_bytes:.3f} ms) -> {flops / (ms * 1e-3) / 1e12:.2f} "
+            f"TFLOP/s, {bound / ms:.1%} of the bound")
+    del cases
+    torch.cuda.empty_cache()
+    return stats, launches, rows
+
+
+# ---------------------------------------------------------------------------
+# ER-t / ER-f: tuned and supervised run_er at DS1
+# ---------------------------------------------------------------------------
+
+DS1_SN_MATCHES = 7_715
+
+
+def er_tuned_phase(ds, ds1_rows):
+    """ER-t: ``run_er(tune_tiles=True)`` at DS1 for every strategy, beside
+    phase 4's 128x128 runs."""
+    from repro_torch.er import ERConfig, run_er
+    from repro_torch.kernels import ops
+
+    phase("ER-t tuned run_er at DS1 (ERConfig(tune_tiles=True))")
+    want = {"pair_range": DS1_PAIR_RANGE["matches"],
+            "sorted_neighborhood": DS1_SN_MATCHES}
+    for strategy in STRATEGIES:
+        base, _ = ds1_rows[strategy]
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = run_er(ds.titles, ERConfig(strategy=strategy, tune_tiles=True),
+                     device="cuda")
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        if res.matches != base.matches:
+            raise AssertionError(f"{strategy}: tuned matches differ from "
+                                 f"128x128's")
+        if len(res.matches) != want.get(strategy, len(base.matches)):
+            raise AssertionError(f"{strategy}: {len(res.matches)} matches")
+        if counts["pair_scores_catalog_compact"] == 0:
+            raise AssertionError(f"{strategy}: compact kernel not launched")
+        tm, tb = res.extra["timings"], base.extra["timings"]
+        log(f"[{strategy}] tuned geometry {res.extra['tuned_geometry']}: "
+            f"tiles {res.extra['catalog_tiles']} (128x128: "
+            f"{base.extra['catalog_tiles']}), matches {len(res.matches)} "
+            f"(equal), stage-1 kernel {tm['stage1_s']:.4f} s (128x128: "
+            f"{tb['stage1_s']:.4f} s), decode {tm['decode_s']:.4f} s, "
+            f"plan/lower/schedule incl. autotune {tm['plan_s']:.3f} s "
+            f"(128x128: {tb['plan_s']:.3f} s), total {wall:.3f} s "
+            f"(128x128: {tb['total_s']:.3f} s); launches {counts}")
+
+
+def er_faults_phase(ds):
+    """ER-f: supervised ``run_er`` at DS1 PairRange on 4 logical devices
+    under a seeded fault script, without and with work stealing."""
+    from repro_torch.er import ERConfig, FaultInjector, FaultScript, run_er
+    from repro_torch.kernels import ops
+
+    phase("ER-f supervised run_er at DS1 pair_range, supervised_devices=4, "
+          "FaultScript.random(seed=0, n_dev=4, n_events=8, max_step=8)")
+    for steal in (None, 1.5):
+        script = FaultScript.random(0, 4, 8, max_step=8,
+                                    straggle_delay=1e6)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = run_er(ds.titles, ERConfig(
+            supervised_devices=4, shard_deadline_s=60.0, max_retries=10,
+            steal_factor=steal), fault_injector=FaultInjector(script),
+            device="cuda")
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        if len(res.matches) != DS1_PAIR_RANGE["matches"] \
+                or res.coverage != 1.0:
+            raise AssertionError(f"supervised run: {len(res.matches)} "
+                                 f"matches, coverage {res.coverage}")
+        kinds = {}
+        for e in script.events:
+            kinds[e.kind] = kinds.get(e.kind, 0) + 1
+        log(f"steal_factor={steal}: script {kinds}; matches "
+            f"{len(res.matches)} (quiet run {DS1_PAIR_RANGE['matches']}), "
+            f"rounds {res.attempts}, retries {res.attempts - 1}, recovered "
+            f"tiles {res.recovered_tiles}, lost tiles 0 (coverage "
+            f"{res.coverage}), steals {res.steals}, measured makespan "
+            f"{res.measured_makespan_s:.3f} s, wall {wall:.3f} s; launches "
+            f"{counts}")
+
+
+# ---------------------------------------------------------------------------
+# ER-s: the resident service at DS1
+# ---------------------------------------------------------------------------
+
+ER_S_BATCHES = 64
+
+
+def er_s_traffic(np, titles):
+    """64 micro-batches of 1-128 perturbed corpus titles (seed 1, as
+    examples/match_service.py makes them); batch 3 leads with a null-key
+    query, batch 5 with a never-seen block, batch 10 holds 512 queries."""
+    rng = np.random.default_rng(1)
+    batches = []
+    for i in range(ER_S_BATCHES):
+        size = 512 if i == 10 else int(rng.integers(1, 129))
+        batch = []
+        for _ in range(size):
+            s = list(titles[int(rng.integers(0, len(titles)))])
+            s[int(rng.integers(3, len(s)))] = "x"
+            batch.append("".join(s))
+        if i == 3:
+            batch[0] = ""
+        if i == 5:
+            batch[0] = "@@@ brand new block"
+        batches.append(batch)
+    return batches
+
+
+def _serve(svc, batches):
+    """Serve ``batches`` in order: (per-batch responses, per-batch ms)."""
+    out, ms = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        out.append(svc.match(batch))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return out, ms
+
+
+def _union(responses, batches):
+    got, off = set(), 0
+    for resp, batch in zip(responses, batches):
+        got.update((a, b + off) for a, b in resp)
+        off += len(batch)
+    return got
+
+
+def er_service_phase(torch, np, ds):
+    """ER-s: ERService at DS1 on the card — streaming ≡ batch, the plain
+    route, the build/load counter, timings and the device's idle share,
+    then ERBatcher, the supervised service under faults and the autotuned
+    service."""
+    import threading
+
+    from repro_torch.er import (ERBatcher, ERConfig, ERService,
+                                FaultInjector, FaultScript, ServiceConfig,
+                                compile_counter, cross_restrict, featurize,
+                                run_er)
+    from repro_torch.kernels import ops
+
+    phase(f"ER-s the resident service: ERService(make_products({DS1_N}, "
+          f"seed=0), ServiceConfig()), {ER_S_BATCHES} micro-batches")
+    corpus = list(ds.titles)
+    batches = er_s_traffic(np, corpus)
+    queries = [q for b in batches for q in b]
+    t0 = time.perf_counter()
+    svc = ERService(corpus, ServiceConfig(), device="cuda")
+    ingest = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with compile_counter() as warm:
+        svc.warmup()
+    warm_s = time.perf_counter() - t0
+    log(f"ingest {ingest:.3f} s ({svc.n_corpus} titles, {svc.bdm.shape[0]} "
+        f"blocks; service-reported {svc.ingest_seconds:.3f} s); warmup "
+        f"{warm_s:.3f} s ({warm.count} builds/loads in warmup); "
+        f"{len(queries)} queries in {len(batches)} batches")
+
+    ops.reset_launch_counts()
+    with compile_counter() as steady:
+        responses, ms = _serve(svc, batches)
+    launches = ops.launch_counts()
+    if steady.count != 0:
+        raise AssertionError(f"{steady.count} builds/loads in steady state")
+    if launches["pair_scores_catalog_compact"] == 0:
+        raise AssertionError("the service launched no compact kernel")
+    served = _union(responses, batches)
+    t0 = time.perf_counter()
+    oneshot = run_er(corpus + queries, ERConfig(strategy="pair_range"),
+                     device="cuda")
+    want = cross_restrict(oneshot.matches, len(corpus))
+    if served != want:
+        raise AssertionError(f"streaming != batch: {len(served)} served vs "
+                             f"{len(want)} from run_er over corpus ++ "
+                             f"queries")
+    ms_a = np.asarray(ms)
+    total_s = ms_a.sum() / 1e3
+    log(f"streaming == batch: {len(served)} cross matches, equal to "
+        f"run_er over corpus ++ queries restricted to cross pairs "
+        f"({time.perf_counter() - t0:.1f} s); steady-state builds/loads 0")
+    log(f"served {len(queries)} queries in {total_s:.3f} s: "
+        f"{len(queries) / total_s:.1f} queries/s; per batch p50 "
+        f"{np.percentile(ms_a, 50):.2f} ms, p99 "
+        f"{np.percentile(ms_a, 99):.2f} ms, max {ms_a.max():.2f} ms; "
+        f"kernel launches {launches} = "
+        f"{launches['pair_scores_catalog_compact'] / len(batches):.2f} "
+        f"compact launches per batch; stats planned_pairs "
+        f"{svc.stats['planned_pairs']} bucket_hits "
+        f"{svc.stats['bucket_hits']}")
+
+    holder = {}
+    wall, cats = device_breakdown(
+        torch, lambda: holder.update(r=_serve(svc, batches)[0]),
+        kernels=ER_KERNELS)
+    if [set(r) for r in holder["r"]] != [set(r) for r in responses]:
+        raise AssertionError("a second pass served other matches")
+    busy = cats["catalog_kernels"] + cats["other"]
+    top = sorted(cats["other_by_name"].items(), key=lambda kv: -kv[1])[:5]
+    idle = 1 - busy / wall if busy else float("nan")
+    log(f"device over the stream (torch.profiler, second pass): wall "
+        f"{wall:.3f} s, device busy {busy * 1e3:.2f} ms = catalog kernels "
+        f"{cats['catalog_kernels'] * 1e3:.2f} + other kernels and copies "
+        f"{cats['other'] * 1e3:.2f} ms ({cats['device_events']} events); "
+        f"device idle {idle:.2%} of the wall time; largest others: "
+        + "; ".join(f"{n} {sec * 1e3:.2f} ms" for n, sec in top))
+
+    # the plain versions on the card: equal except near-threshold pairs
+    plain = ERService(corpus, ServiceConfig(kernel_impl="torch"),
+                      device="cuda")
+    plain_resp, plain_ms = _serve(plain, batches)
+    diff = _union(plain_resp, batches) ^ served
+    if diff:
+        cfg = ServiceConfig()
+        _, _, fc = featurize(corpus, cfg)
+        _, _, fq = featurize(queries, cfg)
+        thr = float(np.float32(cfg.threshold - cfg.filter_margin))
+        for c, q in sorted(diff):
+            s = float(np.dot(fc[c].astype(np.float64),
+                             fq[q].astype(np.float64)))
+            log(f"  kernel/plain differ on (corpus {c}, query {q}): f64 "
+                f"stage-1 score {s!r}")
+            if abs(s - thr) > NEAR:
+                raise AssertionError("kernel and plain routes differ off "
+                                     "the threshold")
+    log(f"kernel_impl='torch' on the card: {len(diff)} pairs differ from "
+        f"the kernel route (each within {NEAR} of the stage-1 threshold); "
+        f"{len(queries) / (sum(plain_ms) / 1e3):.1f} queries/s")
+    del plain
+
+    # ERBatcher: 4 submitting threads, per-request answers
+    got = [None] * len(batches)
+    errors = []
+    t0 = time.perf_counter()
+    with ERBatcher(svc, max_delay_s=0.005) as bat:
+        def submit(k):
+            try:
+                for i in range(k, len(batches), 4):
+                    got[i] = bat.submit(batches[i]).result(timeout=600)
+            except BaseException as e:
+                errors.append(e)
+
+        threads = [threading.Thread(target=submit, args=(k,))
+                   for k in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+    bat_s = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"ERBatcher failed: {errors}")
+    if [set(r) for r in got] != [set(r) for r in responses]:
+        raise AssertionError("ERBatcher answers differ from the service's")
+    log(f"ERBatcher, 4 submitting threads: every per-request answer equals "
+        f"the service's; {len(queries) / bat_s:.1f} queries/s; stats "
+        f"{bat.stats}")
+
+    # the supervised service under a fault script
+    sup = ERService(corpus, ServiceConfig(exec_devices=4, max_retries=8,
+                                          backoff_s=0.0,
+                                          shard_deadline_s=60.0),
+                    device="cuda")
+    sup.warmup()
+    script = FaultScript.random(0, 4, 8, straggle_delay=1e6)
+    sup.set_fault_injector(FaultInjector(script))
+    sup_resp, sup_ms = _serve(sup, batches)
+    coverage = min(r.coverage for r in sup_resp)
+    if coverage != 1.0 or [set(r) for r in sup_resp] != \
+            [set(r) for r in responses]:
+        raise AssertionError(f"supervised service: coverage {coverage} or "
+                             f"other matches")
+    log(f"exec_devices=4 under FaultScript.random(0, 4, 8): coverage 1.0 on "
+        f"every batch, matches equal; retries {sup.stats['retries']}, "
+        f"recovered tiles {sup.stats['recovered_tiles']}, breaker "
+        f"evictions {sup.stats['breaker_evictions']}; "
+        f"{len(queries) / (sum(sup_ms) / 1e3):.1f} queries/s")
+    del sup
+
+    # the autotuned service
+    tuned = ERService(corpus, ServiceConfig(autotune_tiles=True),
+                      device="cuda")
+    t0 = time.perf_counter()
+    tuned.warmup()
+    tune_s = time.perf_counter() - t0
+    tuned_resp, tuned_ms = _serve(tuned, batches)
+    if [set(r) for r in tuned_resp] != [set(r) for r in responses]:
+        raise AssertionError("the autotuned service serves other matches")
+    best = ", ".join(f"{s.geometry} {s.predicted_seconds * 1e3:.1f} ms"
+                     for s in tuned.tune_report.scores[:4])
+    log(f"autotune_tiles=True: pinned {tuned.tile_geometry} after a "
+        f"{tune_s:.2f} s warmup sweep (best measured: {best}); matches "
+        f"equal; {len(queries) / (sum(tuned_ms) / 1e3):.1f} queries/s "
+        f"(128x128: {len(queries) / total_s:.1f})")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # LM serving: granite-moe-1b-a400m through repro_torch.serve.generate
 # ---------------------------------------------------------------------------
 
 GRANITE = "granite-moe-1b-a400m"
-PEAK_BF16_FLOPS = 989e12   # H100 SXM, dense bf16 tensor cores
 FLASH_TOL = {"float32": 5e-4, "bfloat16": 3e-2}    # tests/test_kernels.py
 GROUPED_TOL = {"float32": 1e-4, "bfloat16": 5e-2}  # (the JAX package's own)
 LM_B_TOL = dict(atol=2e-3, rtol=1e-2)              # tests/test_arch_smoke.py
@@ -640,11 +1132,16 @@ def lm_wiring_phase(torch, np):
     return worst
 
 
-def device_breakdown(torch, fn):
+LM_KERNELS = (("flash_attention", "flash_"), ("grouped_matmul", "grouped_mm"))
+ER_KERNELS = (("catalog_kernels", "catalog_kernel"),)
+
+
+def device_breakdown(torch, fn, kernels=LM_KERNELS):
     """Run ``fn`` under ``torch.profiler`` (CPU + CUDA activity) and split
-    the device's kernel time into the two LM kernels and everything else
-    (PyTorch's own kernels, copies): (wall s, {category: device s}). The
-    profiler's own cost is in the wall time."""
+    the device's kernel time into ``kernels`` ((category, substring of the
+    kernel's name) pairs) and everything else (PyTorch's own kernels,
+    copies): (wall s, {category: device s}). The profiler's own cost is in
+    the wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -655,13 +1152,13 @@ def device_breakdown(torch, fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    cats = {"flash_attention": 0.0, "grouped_matmul": 0.0, "other": 0.0,
-            "device_events": 0, "other_by_name": {}}
+    cats = {name: 0.0 for name, _ in kernels}
+    cats.update({"other": 0.0, "device_events": 0, "other_by_name": {}})
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
-        key = ("flash_attention" if "flash_" in e.name else
-               "grouped_matmul" if "grouped_mm" in e.name else "other")
+        key = next((name for name, sub in kernels if sub in e.name),
+                   "other")
         sec = e.time_range.elapsed_us() * 1e-6
         cats[key] += sec
         cats["device_events"] += 1
@@ -893,10 +1390,14 @@ def main() -> int:
     build_phase()
     kstats = new_stats()
     kernel_phase(torch, np, kstats)
-    ds, _, main_launches = ds1_phase(torch)
+    ds, ds1_rows, main_launches = ds1_phase(torch)
     overflow_launches = overflow_phase(ds)
     times = timing_phase(torch, np, ds, kstats)
-    del ds
+    dstats, dense_launches, dense_times = dense_phase(torch, np, ds)
+    er_tuned_phase(ds, ds1_rows)
+    er_faults_phase(ds)
+    er_s_launches = er_service_phase(torch, np, ds)
+    del ds, ds1_rows
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 is on for f32 matmuls; the f32 plain "
                              "versions and LM-b assume it off")
@@ -919,12 +1420,29 @@ def main() -> int:
             source="src/repro_torch/csrc/pair_sim.cu",
             replaces=f"src/repro/kernels/pair_sim.py:{line}",
             launches=launches, path=path,
+            er_s_launches=er_s_launches[kname],
             max_abs_err=kstats[kname]["max_abs_err"],
             near_threshold_flips=kstats[kname]["near_flips"],
             compared_cases=kstats[kname]["cases"],
             tolerance=f"exact except cells whose f64 score is within "
                       f"{NEAR} of the threshold",
             **times[kname]))
+    summary.append(dict(
+        name="pair_scores", route="cuda",
+        source="src/repro_torch/csrc/pair_sim.cu",
+        replaces="src/repro/kernels/pair_sim.py:164",
+        launches=dense_launches,
+        path="ops.pair_scores (phase D: the test sweep, kernel_bench's "
+             "shapes and the first 16,384 DS1 titles, f32 and bf16); times "
+             "on the DS1 case, triangular, 128x128, f32 (bf16_* in bf16)",
+        max_abs_err=dstats["max_abs_err"],
+        near_threshold_flips=dstats["near_flips"],
+        compared_cases=dstats["cases"],
+        tolerance=f"{DENSE_TOL['float32']} f32 / {DENSE_TOL['bfloat16']} "
+                  f"bf16 on cells both sides keep or drop; a cell kept by "
+                  f"one side only must score within {NEAR} of the threshold",
+        **dense_times["float32"],
+        **{f"bf16_{k}": v for k, v in dense_times["bfloat16"].items()}))
     flash = lm_times["flash_attention"]
     summary.append(dict(
         name="flash_attention", route="cuda",

@@ -7,6 +7,12 @@ tiles int32), contiguous; :func:`catalog_from` rebuilds a port
 ``TileCatalog`` from any object carrying a catalog's arrays and sizes
 (the reference's ``TileCatalog`` included) without importing it.
 
+For the resident ER service, :func:`service_config_from` copies a
+reference ``ServiceConfig`` into the port's, mapping the kernel route's
+names (``"xla"`` and ``"interpret"`` → ``"torch"``, ``"pallas"`` →
+``"cuda"``); its ``feedback_state`` (``ERService.export_feedback_state()``,
+plain JSON data) passes across as it is.
+
 For the LM families, :func:`config_from` copies a reference
 ``ModelConfig`` (any object with its fields) into the port's, mapping the
 attention route's names (``"xla"`` → ``"plain"``, ``"pallas"`` →
@@ -22,7 +28,8 @@ from .device import resolve_device
 from .er.compiler.ir import NCOLS, TileCatalog
 from .models.config import ModelConfig
 
-__all__ = ["to_device", "catalog_from", "config_from", "model_params_from"]
+__all__ = ["to_device", "catalog_from", "service_config_from",
+           "config_from", "model_params_from"]
 
 _KINDS = {"f": torch.float32, "i": torch.int32, "u": torch.uint8}
 
@@ -48,6 +55,30 @@ def catalog_from(cat) -> TileCatalog:
                        block_n=int(cat.block_n), n_rows_a=int(cat.n_rows_a),
                        n_rows_b=int(cat.n_rows_b), r=int(cat.r),
                        total_pairs=int(cat.total_pairs))
+
+
+_KERNEL_IMPLS = {"xla": "torch", "interpret": "torch", "pallas": "cuda",
+                 "auto": "auto"}
+
+
+def service_config_from(cfg, **overrides):
+    """The port's ``ServiceConfig`` with ``cfg``'s fields (a reference
+    ``ServiceConfig`` or any object carrying them). ``kernel_impl`` maps
+    "xla" / "interpret" → "torch", "pallas" → "cuda" and keeps "auto";
+    ``feedback_state`` is passed as it is."""
+    import dataclasses
+
+    from .er.service import ServiceConfig
+
+    kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(
+        ServiceConfig) if hasattr(cfg, f.name)}
+    if "kernel_impl" in kw:
+        impl = kw["kernel_impl"]
+        if impl not in _KERNEL_IMPLS:
+            raise ValueError(f"unknown kernel_impl {impl!r}")
+        kw["kernel_impl"] = _KERNEL_IMPLS[impl]
+    kw.update(overrides)
+    return ServiceConfig(**kw)
 
 
 _ATTN_NAMES = {"xla": "plain", "pallas": "kernel"}

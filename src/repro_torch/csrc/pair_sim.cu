@@ -1,39 +1,53 @@
-// Stage-1 catalog kernels of the ER match job, written by hand for Hopper
-// (sm_90a). Built by repro_torch/kernels/build.py into a plain-C shared
-// library and called through ctypes from repro_torch/kernels/pair_sim.py.
+// Stage-1 catalog kernels of the ER match job and the dense thresholded
+// score kernel, written by hand for Hopper (sm_90a). Built by
+// repro_torch/kernels/build.py into a plain-C shared library and called
+// through ctypes from repro_torch/kernels/pair_sim.py.
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/pair_sim.py:
 //   pair_scores_catalog_compact (_catalog_compact_kernel, _load_strips,
 //     _entry_keep)                      -> catalog_kernel<T, BM, BN, true>
 //   pair_scores_catalog (_catalog_kernel) -> catalog_kernel<T, BM, BN, false>
+//   pair_scores (_kernel)               -> dense_kernel<T, BM, BN>
 //
-// For catalog entry t the block computes s = A[a_tile*BM:+BM] . B[b_tile*BN:+BN]^T
-// in f32, keeps a cell when s >= threshold and the entry's predicate holds
-// (validity window, triangle, lb/ub corner cuts, SN band), and writes either
-// the survivors' tile-local ids i*BN + j packed in row-major order plus the
-// exact survivor count (compact), or a dense f32 0/1 mask.
+// Catalog kernels: for catalog entry t the block computes
+// s = A[a_tile*BM:+BM] . B[b_tile*BN:+BN]^T in f32, keeps a cell when
+// s >= threshold and the entry's predicate holds (validity window, triangle,
+// lb/ub corner cuts, SN band), and writes either the survivors' tile-local
+// ids i*BN + j packed in row-major order plus the exact survivor count
+// (compact), or a dense f32 0/1 mask.
 //
-// What bounds it on an H100: operations. A 128x128 tile at d = 256 is
+// Dense kernel: block (i, j) of a (ceil(M/BM), ceil(N/BN)) grid computes the
+// same f32 dot for rows [i*BM, +BM) x cols [j*BN, +BN) of (M, N) and writes
+// s, or 0 where s < threshold (and, with `triangular`, where row >= col),
+// straight into the (M, N) f32 output.
+//
+// What bounds them on an H100: operations. A 128x128 tile at d = 256 is
 // 8.4 MFLOP against at most 256 KB of strips, most of them re-read from L2
 // (neighbouring tiles share strips), so the dot is far above the card's
 // byte/FLOP balance. The survivor set must equal the f32 reference, so the
-// tensor cores (TF32 drops mantissa bits) are out: the kernel runs f32 FMA
-// on the CUDA cores, whose peak is 67 TFLOP/s.
+// tensor cores (TF32 drops mantissa bits) are out: the kernels run f32 FMA
+// on the CUDA cores, whose peak is 67 TFLOP/s. The dense kernel also writes
+// 4 bytes per cell whatever the data, so at small d (below ~40 columns for
+// f32 at these peaks) its output bytes bound it instead.
 //
-// What the design does about it: one block per catalog entry, 256 threads
-// in a 16x16 grid. The tile is cut into sub-tiles of at most 128x128 cells
-// so each thread keeps at most 64 accumulators in registers (a strided 8x8
-// micro-tile at 128x128). The d axis streams through shared memory in
-// chunks of 32 columns, staged transposed with a +1 pad so neither the
-// stores nor the inner-loop reads conflict on banks; bf16 is widened to f32
-// on the way in. Ragged rows past M/N and ragged d are masked here, so the
-// wrapper never pads the feature matrix. The keep bits of the whole tile
-// go to shared memory; the compact epilogue gives each thread a contiguous
-// run of bit words, counts it with popc, takes an exclusive block scan
-// (warp shuffles) and writes ids in row-major order — the order the host
-// decode relies on. Entries with an empty validity window (the zero rows
-// that pad a chunk) skip the mainloop. Not done yet: wgmma, TMA and a
-// multistage pipeline — work for a later PR.
+// What the design does about it: 256 threads in a 16x16 grid per block. The
+// tile is cut into sub-tiles of at most 128x128 cells so each thread keeps
+// at most 64 accumulators in registers (a strided 8x8 micro-tile at
+// 128x128). The d axis streams through shared memory in chunks of 32
+// columns, staged transposed with a +1 pad so neither the stores nor the
+// inner-loop reads conflict on banks; bf16 is widened to f32 on the way in.
+// Ragged rows past M/N and ragged d are masked here, so the wrappers never
+// pad a feature matrix. Catalog kernels: one block per entry; the keep bits
+// of the whole tile go to shared memory; the compact epilogue gives each
+// thread a contiguous run of bit words, counts it with popc, takes an
+// exclusive block scan (warp shuffles) and writes ids in row-major order --
+// the order the host decode relies on. Entries with an empty validity
+// window (the zero rows that pad a chunk) skip the mainloop. Dense kernel:
+// each thread writes its accumulators straight to device memory (a half
+// warp covers 16 consecutive columns); with `triangular` a tile wholly on or
+// below the diagonal writes zeros and skips the mainloop, so the triangular
+// case does about half the work. Not done yet: wgmma, TMA and a multistage
+// pipeline -- work for a later PR.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -92,14 +106,15 @@ __device__ __forceinline__ bool in_entry(const int* e, int gi, int gj) {
          (e[BAND] == 0 || gj - gi < e[BAND]);
 }
 
-// The shared mainloop: sets bit i*BN + j of `bits` for every kept cell.
-template <typename T, int BM, int BN>
-__device__ __forceinline__ void tile_keep_bits(
+// The shared mainloop: the f32 dot of rows [row0, row0 + BM) of a with
+// rows [col0, col0 + BN) of b, one sub-tile of at most 128x128 cells at a
+// time; epi(li, lj, s) gets every cell's tile-local row, col and score.
+template <typename T, int BM, int BN, typename Epilogue>
+__device__ __forceinline__ void tile_mainloop(
     const T* __restrict__ a, const T* __restrict__ b, int m, int n, int d,
-    const int* entry, float threshold, float* As, float* Bs, uint32_t* bits) {
+    int row0, int col0, float* As, float* Bs, Epilogue epi) {
   using G = Geometry<BM, BN>;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int row0 = entry[A_TILE] * BM, col0 = entry[B_TILE] * BN;
   for (int pm = 0; pm < BM; pm += G::SM) {
     for (int pn = 0; pn < BN; pn += G::SN) {
       float acc[G::TM][G::TN];
@@ -127,19 +142,27 @@ __device__ __forceinline__ void tile_keep_bits(
         __syncthreads();
       }
 #pragma unroll
-      for (int i = 0; i < G::TM; ++i) {
+      for (int i = 0; i < G::TM; ++i)
 #pragma unroll
-        for (int j = 0; j < G::TN; ++j) {
-          const int li = pm + ty + 16 * i, lj = pn + tx + 16 * j;
-          if (acc[i][j] >= threshold &&
-              in_entry(entry, row0 + li, col0 + lj)) {
-            const int c = li * BN + lj;
-            atomicOr(&bits[c >> 5], 1u << (c & 31));
-          }
-        }
-      }
+        for (int j = 0; j < G::TN; ++j)
+          epi(pm + ty + 16 * i, pn + tx + 16 * j, acc[i][j]);
     }
   }
+}
+
+// The catalog kernels' keep bits: bit i*BN + j of `bits` for every kept cell.
+template <typename T, int BM, int BN>
+__device__ __forceinline__ void tile_keep_bits(
+    const T* __restrict__ a, const T* __restrict__ b, int m, int n, int d,
+    const int* entry, float threshold, float* As, float* Bs, uint32_t* bits) {
+  const int row0 = entry[A_TILE] * BM, col0 = entry[B_TILE] * BN;
+  tile_mainloop<T, BM, BN>(
+      a, b, m, n, d, row0, col0, As, Bs, [&](int li, int lj, float s) {
+        if (s >= threshold && in_entry(entry, row0 + li, col0 + lj)) {
+          const int c = li * BN + lj;
+          atomicOr(&bits[c >> 5], 1u << (c & 31));
+        }
+      });
 }
 
 // Exclusive prefix sum of v over the block; `total` gets the block's sum.
@@ -241,6 +264,35 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Dense thresholded scores: block (blockIdx.y, blockIdx.x) owns rows
+// [by*BM, +BM) x cols [bx*BN, +BN) of the (m, n) f32 output.
+template <typename T, int BM, int BN>
+__global__ void __launch_bounds__(kThreads)
+    dense_kernel(const T* __restrict__ a, const T* __restrict__ b, int m,
+                 int n, int d, float threshold, int triangular,
+                 float* __restrict__ out) {
+  extern __shared__ float smem[];
+  float* As = smem;
+  float* Bs = smem + kChunk * Geometry<BM, BN>::LDA;
+  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
+  if (triangular && row0 >= col0 + BN - 1) {
+    // Every cell has row >= col: nothing is kept (uniform over the block).
+    for (int e = threadIdx.x; e < BM * BN; e += kThreads) {
+      const int gi = row0 + e / BN, gj = col0 + e % BN;
+      if (gi < m && gj < n) out[(size_t)gi * n + gj] = 0.f;
+    }
+    return;
+  }
+  tile_mainloop<T, BM, BN>(
+      a, b, m, n, d, row0, col0, As, Bs, [&](int li, int lj, float s) {
+        const int gi = row0 + li, gj = col0 + lj;
+        if (gi < m && gj < n) {
+          const bool keep = s >= threshold && (!triangular || gi < gj);
+          out[(size_t)gi * n + gj] = keep ? s : 0.f;
+        }
+      });
+}
+
 template <typename T, int BM, int BN, bool kCompact>
 cudaError_t launch(const void* a, const void* b, const void* catalog, int m,
                    int n, int d, int t, float threshold, void* mask,
@@ -277,6 +329,42 @@ cudaError_t dispatch(int bm, int bn, const void* a, const void* b,
   PAIR_SIM_CASE(256, 32) PAIR_SIM_CASE(256, 64) PAIR_SIM_CASE(256, 128)
   PAIR_SIM_CASE(256, 256)
 #undef PAIR_SIM_CASE
+  return cudaErrorInvalidValue;
+}
+
+template <typename T, int BM, int BN>
+cudaError_t launch_dense(const void* a, const void* b, int m, int n, int d,
+                         float threshold, int triangular, void* out,
+                         cudaStream_t stream) {
+  constexpr int kSmem = Geometry<BM, BN>::STAGE_FLOATS * 4;
+  auto kernel = dense_kernel<T, BM, BN>;
+  if (kSmem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
+  kernel<<<grid, kThreads, kSmem, stream>>>(
+      static_cast<const T*>(a), static_cast<const T*>(b), m, n, d, threshold,
+      triangular, static_cast<float*>(out));
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_dense(int bm, int bn, const void* a, const void* b,
+                           int m, int n, int d, float threshold,
+                           int triangular, void* out, cudaStream_t stream) {
+#define PAIR_SIM_DENSE(BM, BN)                                            \
+  if (bm == BM && bn == BN)                                               \
+    return launch_dense<T, BM, BN>(a, b, m, n, d, threshold, triangular, \
+                                   out, stream);
+  PAIR_SIM_DENSE(32, 32) PAIR_SIM_DENSE(32, 64) PAIR_SIM_DENSE(32, 128)
+  PAIR_SIM_DENSE(32, 256) PAIR_SIM_DENSE(64, 32) PAIR_SIM_DENSE(64, 64)
+  PAIR_SIM_DENSE(64, 128) PAIR_SIM_DENSE(64, 256) PAIR_SIM_DENSE(128, 32)
+  PAIR_SIM_DENSE(128, 64) PAIR_SIM_DENSE(128, 128) PAIR_SIM_DENSE(128, 256)
+  PAIR_SIM_DENSE(256, 32) PAIR_SIM_DENSE(256, 64) PAIR_SIM_DENSE(256, 128)
+  PAIR_SIM_DENSE(256, 256)
+#undef PAIR_SIM_DENSE
   return cudaErrorInvalidValue;
 }
 
@@ -318,6 +406,28 @@ int pair_sim_catalog_launch(int compact, int bf16, int device, const void* a,
                                            capacity, s);
   }
   // Leave the caller's current device as it was (PyTorch reads it).
+  const cudaError_t restored = cudaSetDevice(caller_device);
+  return err != cudaSuccess ? err : restored;
+}
+
+// Launches the dense kernel on `stream` of `device`: out (m, n) f32 gets
+// a . b^T where it is >= threshold (and row < col with triangular != 0), 0
+// elsewhere. bf16 != 0: a and b are bf16, else f32. Returns the cudaError_t
+// of the launch (0 on success); allocates nothing.
+int pair_sim_dense_launch(int bf16, int device, const void* a, const void* b,
+                          int m, int n, int d, int bm, int bn,
+                          float threshold, int triangular, void* out,
+                          void* stream) {
+  cudaGetLastError();  // clear an earlier, unrelated error
+  int caller_device = 0;
+  cudaError_t err = cudaGetDevice(&caller_device);
+  if (err != cudaSuccess) return err;
+  if ((err = cudaSetDevice(device)) != cudaSuccess) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = bf16 ? dispatch_dense<__nv_bfloat16>(bm, bn, a, b, m, n, d, threshold,
+                                             triangular, out, s)
+             : dispatch_dense<float>(bm, bn, a, b, m, n, d, threshold,
+                                     triangular, out, s);
   const cudaError_t restored = cudaSetDevice(caller_device);
   return err != cudaSuccess ? err : restored;
 }

@@ -1,6 +1,8 @@
 """Entity resolution on the card: featurization, blocking, the stage-2
-verifier, the synthetic datasets, the match-job compiler and the
-end-to-end pipeline — the single-host slice of ``repro.er``."""
+verifier, the synthetic datasets, the match-job compiler (with tuning,
+feedback and the fault-tolerant supervisor), the end-to-end pipeline and
+the resident service with its batcher — the single-device part of
+``repro.er``."""
 from .blocking import (  # noqa: F401
     dense_block_ids,
     exponential_block_ids,
@@ -11,12 +13,21 @@ from .blocking import (  # noqa: F401
 from .datasets import Dataset, make_products, make_publications  # noqa: F401
 from .encode import encode_titles, ngram_features  # noqa: F401
 from .compiler import (  # noqa: F401
+    DeviceKilledError,
+    EwmaCostModel,
+    FaultEvent,
+    FaultInjector,
+    FaultScript,
     MatchJob,
     NoHealthyDevicesError,
+    RecoveryFailedError,
     Schedule,
+    SupervisedReport,
     TileCatalog,
+    TransientScorerError,
     cross_job,
     execute,
+    execute_supervised,
     lower,
     match_catalog,
     plan_to_job,
@@ -26,6 +37,15 @@ from .compiler import (  # noqa: F401
     tile_costs,
     verify_pairs,
 )
+from .executor import build_catalog  # noqa: F401
 from .pipeline import (ERConfig, ERResult, JobPlan, compile_catalog,  # noqa: F401
                        cross_restrict, featurize, plan_job, run_er)
+from .service import (  # noqa: F401
+    ERService,
+    MatchResponse,
+    ServiceConfig,
+    ServiceUnavailable,
+    compile_counter,
+)
+from .batcher import AdmissionError, ERBatcher  # noqa: F401
 from .similarity import edit_distance, edit_similarity  # noqa: F401

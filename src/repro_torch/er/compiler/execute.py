@@ -8,22 +8,30 @@ fixed-size chunks (padded to powers of two with all-zero entries, which
 keep nothing because ``r0 == r1``) and decodes each chunk's packed
 survivors on the host; a chunk whose EXACT count overflows the capacity
 is re-scored through the dense-mask kernel. ``verify_pairs`` is stage 2
-on the device, ``match_catalog`` fuses the two. The mesh and supervised
-paths belong to later slices and raise ``NotImplementedError``.
+on the device, ``match_catalog`` fuses the two. ``execute_supervised``
+is the fault-tolerant supervisor: tiles scheduled onto logical device
+shards, each shard scored by ``score_catalog`` on the card, failed
+shards re-scheduled tile by tile. The mesh path belongs to a later
+slice and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import time
-from typing import Optional, Tuple
+from dataclasses import dataclass, field
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ...device import resolve_device
+from .faults import DeviceKilledError, FaultInjector, TransientScorerError
+from .feedback import N_TILE_CLASSES, EwmaCostModel, tile_class
 from .ir import A_TILE, B_TILE, NCOLS, TileCatalog
+from .schedule import NoHealthyDevicesError, schedule_tiles, tile_costs
 
-__all__ = ["execute", "score_catalog", "stage1_stats", "verify_pairs",
-           "match_catalog"]
+__all__ = ["execute", "execute_supervised", "score_catalog", "stage1_stats",
+           "verify_pairs", "match_catalog", "shard_sane", "ShardRecord",
+           "SupervisedReport", "RecoveryFailedError"]
 
 
 def _pad_pow2(t: int, cap: int) -> int:
@@ -159,6 +167,329 @@ def execute(catalog: TileCatalog, feats_a, feats_b=None, *,
     return score_catalog(feats_a, catalog, feats_b, threshold=threshold,
                          impl=impl, chunk_tiles=chunk_tiles, compact=compact,
                          compact_capacity=compact_capacity, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Supervised stage 1: tile-granular fault recovery
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShardRecord:
+    """One per-device-shard completion record, the supervisor's ledger."""
+    round: int
+    device: int
+    tiles: int
+    cost: int                  # live pairs the shard was responsible for
+    status: str                # ok | killed | transient | timeout | corrupt
+    elapsed: float             # REAL wall seconds of the shard call
+    injected_delay: float = 0.0  # virtual straggle seconds (injector only)
+
+    @property
+    def busy(self) -> float:
+        """Simulated device-busy seconds: real wall time plus the
+        injected virtual delay. Deadlines, the makespan clock and the
+        feedback model run on busy time; latency *statistics* must use
+        ``elapsed`` so chaos scripts don't poison them."""
+        return self.elapsed + self.injected_delay
+
+
+@dataclass
+class SupervisedReport:
+    """What happened during one :func:`execute_supervised` run."""
+    rounds: int = 0            # scheduling rounds executed (1 == quiet run)
+    recovered_tiles: int = 0   # tiles that succeeded on a retry round
+    planned_cost: int = 0      # live pairs the catalog plans
+    scored_cost: int = 0       # live pairs covered by accepted shards
+    lost_tiles: int = 0        # tiles never scored (degraded mode only)
+    steals: int = 0            # mid-stream re-LPT events (slow devices)
+    stolen_tiles: int = 0      # queued tiles moved off slow devices
+    predicted_makespan_s: float = 0.0  # calibrated round-1 projection
+    measured_makespan_s: float = 0.0   # Σ rounds max device busy-time
+    records: List[ShardRecord] = field(default_factory=list)
+    backoffs: List[float] = field(default_factory=list)
+    healthy: Optional[np.ndarray] = None   # final device mask
+
+    @property
+    def retries(self) -> int:
+        return max(self.rounds - 1, 0)
+
+    @property
+    def coverage(self) -> float:
+        """Fraction of planned live pairs actually scored — 1.0 after a
+        full recovery, < 1.0 only in degraded (partial) mode."""
+        if self.planned_cost == 0:
+            return 1.0
+        return self.scored_cost / self.planned_cost
+
+
+class RecoveryFailedError(RuntimeError):
+    """Retries/deadline exhausted with tiles still unscored (and the
+    caller did not opt into partial results). Carries the report."""
+
+    def __init__(self, msg: str, report: SupervisedReport):
+        super().__init__(msg)
+        self.report = report
+
+
+def shard_sane(rows_a: np.ndarray, rows_b: np.ndarray,
+               n_a: int, n_b: int) -> bool:
+    """Cheap survivor sanity check: paired 1-D int arrays, every index in
+    bounds. Any corrupted shard from :meth:`FaultInjector.corrupt_output`
+    fails this by construction; a real deployment would run the same
+    check on rows coming back over the wire."""
+    if rows_a.shape != rows_b.shape or rows_a.ndim != 1:
+        return False
+    if rows_a.size == 0:
+        return True
+    return bool((rows_a >= 0).all() and (rows_a < n_a).all()
+                and (rows_b >= 0).all() and (rows_b < n_b).all())
+
+
+def _sub_catalog(catalog: TileCatalog, idx: np.ndarray) -> TileCatalog:
+    return TileCatalog(tiles=catalog.tiles[idx], block_m=catalog.block_m,
+                       block_n=catalog.block_n, n_rows_a=catalog.n_rows_a,
+                       n_rows_b=catalog.n_rows_b, r=catalog.r,
+                       total_pairs=catalog.total_pairs)
+
+
+def execute_supervised(catalog: TileCatalog, feats_a, feats_b=None, *,
+                       threshold: float, n_dev: int = 1,
+                       healthy: Optional[np.ndarray] = None,
+                       impl: str = "auto", chunk_tiles: int = 1024,
+                       policy: str = "cost_lpt",
+                       injector: Optional[FaultInjector] = None,
+                       shard_deadline: Optional[float] = None,
+                       deadline: Optional[float] = None,
+                       max_retries: int = 3, backoff: float = 0.05,
+                       backoff_factor: float = 2.0, sleep=time.sleep,
+                       partial: bool = False,
+                       feedback: Optional[EwmaCostModel] = None,
+                       steal_factor: Optional[float] = None,
+                       steal_quantum: Optional[int] = None,
+                       compact: bool = True,
+                       compact_capacity: Optional[int] = None,
+                       device="cuda"
+                       ) -> Tuple[np.ndarray, np.ndarray, SupervisedReport]:
+    """Stage 1 with tile-granular fault recovery over logical devices.
+
+    The catalog's tiles are cost-LPT scheduled onto ``n_dev`` logical
+    device shards; the host drives each shard through
+    :func:`score_catalog` on ``device`` (on a real cluster each shard
+    call is the per-device RPC). Features move to ``device`` once; each
+    shard's time ends when its survivors are on the host, so a shard's
+    ``perf_counter`` time is device time plus the host decode. Every
+    shard produces a completion record; shards that fail (killed
+    device), time out (wall + injected latency > ``shard_deadline``),
+    raise transiently, or return survivors that fail
+    :func:`shard_sane` are DISCARDED, their device is masked out
+    where the failure indicates device loss (kill/timeout), and ONLY the
+    lost tiles are re-scheduled over the shrunken healthy mask — at most
+    ``max_retries`` extra rounds with exponential backoff
+    (``backoff * backoff_factor**k``, each sleep clamped to the
+    remaining wall ``deadline``).
+
+    **Runtime feedback.** Pass ``feedback=`` (an :class:`EwmaCostModel`)
+    and every accepted shard call trains the model, and every round's
+    ``schedule_tiles`` is calibrated by it (wall-clock-weighted tile
+    packing, heterogeneous device placement). Pass ``steal_factor=`` to
+    enable mid-stream work stealing: each device's round work is split
+    into ``steal_quantum``-tile batches (one batch per device when
+    unset), dispatch follows per-device virtual busy-time clocks (the
+    idle-device-next simulation of a parallel fleet), and after every
+    completed call a device whose projected finish exceeds
+    ``steal_factor ×`` the fleet's median projection has its *queued*
+    (never in-flight) batches re-placed greedily onto the
+    fastest-projected other devices. Stolen tiles were not yet scored,
+    so exactly-once merging is untouched.
+
+    Survivors merge idempotently: the catalog covers each planned pair
+    exactly once and results from failed shards are never merged, so
+    re-executing a tile cannot double-count — the final
+    ``np.unique`` over (row_a, row_b) makes recovery exactly-once at the
+    match-set level even if a future policy merges late stragglers.
+
+    ``deadline`` bounds the whole call (seconds); on exhaustion —
+    or when retries run out, or every device dies — the call either
+    raises :class:`RecoveryFailedError` / :class:`NoHealthyDevicesError`
+    or, with ``partial=True``, returns what it has with
+    ``report.coverage < 1`` (the service's graceful-degradation mode).
+
+    Returns ``(rows_a, rows_b, report)`` — deduplicated host int64
+    survivor candidates plus the :class:`SupervisedReport`.
+    """
+    t_start = time.perf_counter()
+    dev = resolve_device(device)
+    feats_a = _to_device(feats_a, dev)
+    if feats_b is not None:
+        feats_b = _to_device(feats_b, dev)
+    if healthy is None:
+        healthy = np.ones(n_dev, bool)
+    healthy = np.asarray(healthy, bool).copy()
+    if steal_factor is not None and feedback is None:
+        feedback = EwmaCostModel(n_dev)
+    costs = tile_costs(catalog)
+    classes = tile_class(catalog) if feedback is not None else None
+    report = SupervisedReport(planned_cost=int(costs.sum()), healthy=healthy)
+    out_a: List[np.ndarray] = [np.zeros(0, np.int64)]
+    out_b: List[np.ndarray] = [np.zeros(0, np.int64)]
+    pending = np.arange(catalog.num_tiles, dtype=np.int64)
+    n_a, n_b = catalog.n_rows_a, catalog.n_rows_b
+
+    def _out_of_time() -> bool:
+        return (deadline is not None
+                and time.perf_counter() - t_start >= deadline)
+
+    def _predict(dev: int, batch: np.ndarray) -> float:
+        return feedback.predict_tiles(dev, costs[batch], classes[batch])
+
+    def _steal_pass(queues, clocks) -> None:
+        """Re-place every queued batch of over-projected devices onto the
+        fastest-projected peers (greedy, largest batch first)."""
+        proj = {}
+        for k in clocks:
+            proj[k] = clocks[k] + sum(_predict(k, b)
+                                      for b in queues.get(k, ()))
+        med = float(np.median(list(proj.values())))
+        victims = [k for k in list(queues)
+                   if proj[k] > steal_factor * max(med, 1e-9)]
+        for v in victims:
+            if len(clocks) < 2:
+                return
+            batches = queues.pop(v)
+            report.steals += 1
+            proj[v] = clocks[v]
+            batches.sort(key=lambda b: -float(costs[b].sum()))
+            for b in batches:
+                dst = min((k for k in clocks if k != v),
+                          key=lambda k: (proj[k] + _predict(k, b), k))
+                queues.setdefault(dst, []).append(b)
+                proj[dst] += _predict(dst, b)
+                report.stolen_tiles += int(b.size)
+
+    while pending.size:
+        if report.rounds > max_retries or _out_of_time():
+            break
+        if report.rounds:                       # retry round: back off
+            b = backoff * backoff_factor ** (report.rounds - 1)
+            if deadline is not None:            # never sleep past deadline
+                b = min(b, max(deadline - (time.perf_counter() - t_start),
+                               0.0))
+            report.backoffs.append(b)
+            if b > 0:
+                sleep(b)
+            if _out_of_time():                  # re-check: sleep spent it
+                break
+        report.rounds += 1
+        sub = _sub_catalog(catalog, pending)
+        try:
+            sched = schedule_tiles(sub, n_dev=n_dev, healthy=healthy,
+                                   policy=policy, feedback=feedback)
+        except NoHealthyDevicesError:
+            if partial:
+                break
+            report.lost_tiles = int(pending.size)
+            raise
+        if report.rounds == 1 and sched.calibrated:
+            report.predicted_makespan_s = float(np.max(sched.predicted_s))
+        dev_of_tile = sched.reducer_device[sched.tile_reducer]
+        lost: List[np.ndarray] = []
+        # Per-device FIFO queues of quantum-sized batches plus virtual
+        # busy-time clocks; dispatching to the min-clock device (lowest
+        # id on ties) simulates a parallel fleet — with one batch per
+        # device and zeroed clocks it reproduces the classic ascending-
+        # device-order call sequence exactly.
+        queues: dict = {}
+        clocks: dict = {}
+        for d in np.flatnonzero(healthy):
+            d = int(d)
+            clocks[d] = 0.0
+            mine = pending[dev_of_tile == d]
+            if mine.size == 0:
+                continue
+            if steal_quantum:
+                queues[d] = [mine[lo:lo + steal_quantum]
+                             for lo in range(0, mine.size, steal_quantum)]
+            else:
+                queues[d] = [mine]
+        round_makespan = 0.0
+        while queues:
+            if _out_of_time():
+                for q in queues.values():
+                    lost.extend(q)
+                queues.clear()
+                break
+            d = min(queues, key=lambda k: (clocks[k], k))
+            mine = queues[d].pop(0)
+            if not queues[d]:
+                del queues[d]
+            cost = int(costs[mine].sum())
+            t0 = time.perf_counter()
+            status, extra = "ok", 0.0
+            ra = rb = None
+            try:
+                plan = injector.shard_call(d) if injector else None
+                ra, rb = score_catalog(
+                    feats_a, _sub_catalog(catalog, mine), feats_b,
+                    threshold=threshold, impl=impl,
+                    chunk_tiles=chunk_tiles, compact=compact,
+                    compact_capacity=compact_capacity, device=dev)
+                if plan is not None:
+                    extra = plan.delay
+                    if plan.corrupt:
+                        ra, rb = injector.corrupt_output(ra, rb, n_a, n_b)
+            except DeviceKilledError:
+                status = "killed"
+            except TransientScorerError:
+                status = "transient"
+            elapsed = time.perf_counter() - t0
+            busy = elapsed + extra
+            if status == "ok":
+                if shard_deadline is not None and busy > shard_deadline:
+                    status = "timeout"          # straggler: discard output
+                elif not shard_sane(ra, rb, n_a, n_b):
+                    status = "corrupt"          # failed the sanity check
+            report.records.append(ShardRecord(
+                round=report.rounds, device=d, tiles=int(mine.size),
+                cost=cost, status=status, elapsed=elapsed,
+                injected_delay=extra))
+            clocks[d] += busy
+            round_makespan = max(round_makespan, clocks[d])
+            if status == "ok":
+                out_a.append(ra)
+                out_b.append(rb)
+                report.scored_cost += cost
+                if report.rounds > 1:
+                    report.recovered_tiles += int(mine.size)
+                if feedback is not None and cost > 0:
+                    feedback.observe(
+                        d, np.bincount(classes[mine], weights=costs[mine],
+                                       minlength=N_TILE_CLASSES), busy)
+            else:
+                lost.append(mine)
+                if status in ("killed", "timeout"):
+                    healthy[d] = False          # device-level failure
+                    lost.extend(queues.pop(d, []))
+                    clocks.pop(d, None)
+            if (steal_factor is not None and feedback is not None
+                    and feedback.observations >= 1
+                    and queues and len(clocks) > 1):
+                _steal_pass(queues, clocks)
+        report.measured_makespan_s += round_makespan
+        pending = (np.concatenate(lost) if lost
+                   else np.zeros(0, np.int64))
+
+    report.lost_tiles = int(pending.size)
+    report.healthy = healthy
+    if pending.size and not partial:
+        raise RecoveryFailedError(
+            f"{pending.size} tiles unscored after {report.retries} retries",
+            report)
+    ra = np.concatenate(out_a)
+    rb = np.concatenate(out_b)
+    if ra.size:                                 # exactly-once at the
+        pairs = np.unique(np.stack([ra, rb], axis=1), axis=0)   # match level
+        ra, rb = pairs[:, 0], pairs[:, 1]
+    return ra, rb, report
 
 
 _VERIFY_CHUNK = 8_192

@@ -24,7 +24,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
-from ...core.assignment import greedy_lpt, makespan_stats
+from ...core.assignment import greedy_lpt, greedy_lpt_hetero, makespan_stats
 from .ir import (A_TILE, B_TILE, R0, R1, C0, C1, TRI, LB_R, LB_C, UB_R,
                  UB_C, BAND, RED, NCOLS, TileCatalog)
 
@@ -162,8 +162,14 @@ def schedule_tiles(catalog: TileCatalog, *, n_dev: int = 1,
     route reducers → devices round-robin (the pre-scheduler behavior,
     kept as the benchmark baseline).
 
-    ``feedback=`` (runtime-feedback calibration) raises
-    ``NotImplementedError`` until the feedback slice is ported.
+    ``feedback=`` an :class:`~.feedback.EwmaCostModel` with at least one
+    observation turns the cost-LPT placement into a *calibrated* one:
+    tile weights become exact live pairs × the measured per-tile-class
+    rate (the exact pair counts still back every coverage metric), and
+    reducer loads land on devices via finish-time LPT over the measured
+    per-device rates (:func:`core.assignment.greedy_lpt_hetero`), so a
+    slow device gets proportionally less work. The projection lands on
+    ``Schedule.predicted_s`` / ``stats()["predicted_makespan_s"]``.
 
     ``comms_plan=`` attaches a :class:`~.comms.CommsPlan` — ``execute``
     then uses the plan's locality tile placement (its hop bound depends
@@ -183,13 +189,26 @@ def schedule_tiles(catalog: TileCatalog, *, n_dev: int = 1,
     r = catalog.r
     costs = tile_costs(catalog)
     device_rate = predicted_s = None
-    if feedback is not None:
-        # The calibrated branch needs feedback.tile_class, which arrives
-        # with the tuning-and-feedback slice (ROADMAP Queue 1 item 7).
-        raise NotImplementedError(
-            "feedback-calibrated scheduling is not ported yet "
-            "(ROADMAP Queue 1 item 7: tuning and feedback)")
-    if policy == "cost_lpt":
+    calibrate = (feedback is not None and policy == "cost_lpt"
+                 and feedback.observations > 0)
+    if calibrate:
+        from .feedback import tile_class
+        sec = costs * feedback.class_rates()[tile_class(catalog)]
+        # greedy_lpt weighs int64: scale predicted seconds to ~ns so the
+        # exact-cost tie-breaking order is preserved at any magnitude.
+        scale = 2.0 ** 40 / max(float(sec.max()), 1e-30) if sec.size else 1.0
+        tile_reducer, _ = greedy_lpt(
+            np.round(sec * scale).astype(np.int64), r)
+        reducer_sec = np.bincount(tile_reducer, weights=sec, minlength=r)
+        device_rate = feedback.device_rates()
+        rel = device_rate / max(feedback.global_rate, 1e-300)
+        on_alive, _, finish = greedy_lpt_hetero(reducer_sec, rel[alive])
+        reducer_device = alive[on_alive]
+        predicted_s = np.zeros(n_dev)
+        predicted_s[alive] = finish
+        reducer_load = np.bincount(
+            tile_reducer, weights=costs, minlength=r).astype(np.int64)
+    elif policy == "cost_lpt":
         tile_reducer, reducer_load = greedy_lpt(costs, r)
         on_alive, _ = greedy_lpt(reducer_load, alive.size)
         reducer_device = alive[on_alive]

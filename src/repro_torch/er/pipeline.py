@@ -12,9 +12,11 @@ pair lists (paired dots + the same verifier) as the parity oracle.
 Entities without a blocking key (block id −1) go through the match_⊥
 cross job (paper §III, Appendix I); SN has none.
 
-Options of later slices raise ``NotImplementedError`` naming their
-ROADMAP item: a mesh, supervised or fault-injected runs, runtime
-feedback, tile autotuning and non-flat comms.
+``ERConfig.tune_tiles`` picks each job's tile geometry with the
+occupancy autotuner; ``supervised_devices`` / ``fault_injector=`` run
+stage 1 through the fault-tolerant supervisor, calibrated by
+``feedback=``. A mesh and non-flat comms belong to a later slice and
+raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -48,9 +50,10 @@ from ..device import resolve_device
 from ..kernels.ops import IMPLS
 from .blocking import prefix_block_ids, sn_sort_order
 from .encode import encode_titles, ngram_features
-from .compiler import (Schedule, TileCatalog, apply_schedule, cross_job,
-                       enumerate_task_pairs, lower, plan_to_job,
-                       schedule_tiles, stage1_stats)
+from .compiler import (EwmaCostModel, MatchJob, Schedule,
+                       TileCatalog, apply_schedule, autotune, cross_job,
+                       enumerate_task_pairs, execute_supervised, lower,
+                       plan_to_job, schedule_tiles, stage1_stats)
 from .compiler.execute import execute, verify_pairs
 
 __all__ = ["ERConfig", "ERResult", "JobPlan", "run_er", "plan_job",
@@ -91,11 +94,21 @@ class ERConfig:
     executor: str = "catalog"          # catalog | reference
     block_m: int = 128                 # catalog tile rows
     block_n: int = 128                 # catalog tile cols
-    tune_tiles: bool = False           # True: ROADMAP Queue 1 item 7
+    tune_tiles: bool = False           # pick (block_m, block_n) per job
+                                       # via compiler.autotune (catalog
+                                       # executor; overrides block_m/n)
     kernel_impl: str = "auto"          # auto | cuda | torch
     schedule_policy: str = "cost_lpt"  # cost_lpt | round_robin
     comms: str = "flat"                # other policies: Queue 1 item 10
-    supervised_devices: int = 0        # > 0: Queue 1 item 8
+    # ---- fault-tolerant execution (catalog executor only) ----
+    supervised_devices: int = 0        # > 0: stage 1 through the supervisor
+                                       # on N logical device shards
+    max_retries: int = 3               # recovery rounds per supervised job
+    shard_deadline_s: Optional[float] = None   # straggler cutoff per shard
+    backoff_s: float = 0.0             # base retry backoff (exponential)
+    # ---- runtime feedback (supervised catalog executor only) ----
+    steal_factor: Optional[float] = None   # > 0: mid-stream work stealing
+    steal_quantum: Optional[int] = None    # tiles per dispatch batch
     compact_capacity: Optional[int] = None  # packed slots per tile;
                                             # None = bm·bn (never overflows)
 
@@ -111,6 +124,11 @@ class ERResult:
     extra: Dict = field(default_factory=dict)
     config: Optional[ERConfig] = None  # the (fresh) config this run used
     schedule: Optional[Dict] = None    # Schedule.stats() (catalog executor)
+    attempts: int = 1                  # supervisor rounds (1 == quiet run)
+    recovered_tiles: int = 0           # tiles re-executed after a failure
+    coverage: float = 1.0              # live pairs scored / planned
+    steals: int = 0                    # work-stealing events (supervised)
+    measured_makespan_s: float = 0.0   # supervisor busy-time makespan
 
     @property
     def makespan_seconds(self) -> float:
@@ -176,21 +194,13 @@ def _reference_reducer_rows(plan, r: int) -> List[Tuple[np.ndarray, np.ndarray]]
     return rows
 
 
-def _not_ported(cfg: ERConfig, fault_injector, feedback, mesh) -> None:
-    """Options of later slices raise, naming their ROADMAP Queue 1 item."""
+def _not_ported(cfg: ERConfig, mesh) -> None:
+    """Options of a later slice raise, naming their ROADMAP Queue 1 item."""
     todo = []
     if mesh is not None:
         todo.append("mesh= (item 10: mesh)")
     if cfg.comms != "flat":
         todo.append(f"comms={cfg.comms!r} (item 10: mesh)")
-    if cfg.supervised_devices > 0:
-        todo.append("supervised_devices > 0 (item 8: supervisor)")
-    if fault_injector is not None:
-        todo.append("fault_injector= (item 8: supervisor)")
-    if feedback is not None:
-        todo.append("feedback= (item 7: tuning and feedback)")
-    if cfg.tune_tiles:
-        todo.append("tune_tiles=True (item 7: tuning and feedback)")
     if todo:
         raise NotImplementedError(
             "not ported yet, see ROADMAP Queue 1: " + "; ".join(todo))
@@ -265,10 +275,29 @@ def plan_job(titles: Sequence[str], cfg: ERConfig,
                    extra=extra)
 
 
-def compile_catalog(plan, cfg: ERConfig) -> Tuple[TileCatalog, Schedule]:
+def _tile_geometry(job: MatchJob, cfg: ERConfig,
+                  extra: Optional[Dict] = None) -> Tuple[int, int]:
+    """Per-job tile geometry: the occupancy autotuner's pick when
+    ``cfg.tune_tiles`` (recorded as ``extra["tuned_geometry"]["job<k>"]``
+    in call order, as the JAX package records it), else the configured
+    (block_m, block_n)."""
+    if not cfg.tune_tiles:
+        return cfg.block_m, cfg.block_n
+    rep = autotune(job, d=cfg.feature_dim,
+                   capacity=cfg.compact_capacity or 0)
+    if extra is not None:
+        tuned = extra.setdefault("tuned_geometry", {})
+        tuned[f"job{len(tuned)}"] = rep.geometry
+    return rep.geometry
+
+
+def compile_catalog(plan, cfg: ERConfig, extra: Optional[Dict] = None
+                    ) -> Tuple[TileCatalog, Schedule]:
     """``plan_to_job → lower → schedule_tiles``: the tile catalog the
-    catalog executor scores, in scheduled order, and its schedule."""
-    catalog = lower(plan_to_job(plan), cfg.block_m, cfg.block_n)
+    catalog executor scores, in scheduled order, and its schedule; the
+    geometry is :func:`_tile_geometry`'s."""
+    job = plan_to_job(plan)
+    catalog = lower(job, *_tile_geometry(job, cfg, extra))
     sched = schedule_tiles(catalog, n_dev=1, policy=cfg.schedule_policy)
     return apply_schedule(catalog, sched), sched
 
@@ -284,6 +313,17 @@ def run_er(titles: Sequence[str], config: Optional[ERConfig] = None,
     resolved config is returned on ``ERResult.config``. Seconds per stage
     land on ``ERResult.extra["timings"]``; on the card each stage ends in
     a synchronize.
+
+    With ``cfg.supervised_devices > 0`` (or a ``fault_injector``) the
+    catalog executor's stage 1 runs through the fault-tolerant supervisor
+    (``compiler.execute_supervised``) on that many logical device shards;
+    ``ERResult.attempts`` / ``recovered_tiles`` / ``coverage`` report what
+    recovery did, and the match set equals the failure-free run's.
+    ``feedback`` (an ``EwmaCostModel``, supervised runs only) calibrates
+    every supervised schedule and enables ``cfg.steal_factor`` work
+    stealing; with ``cfg.steal_factor`` set and no model given, a fresh
+    one is made for the run. ``cfg.tune_tiles`` lowers each job at the
+    autotuner's geometry (``extra["tuned_geometry"]``).
     """
     del axis
     t_start = time.perf_counter()
@@ -293,8 +333,13 @@ def run_er(titles: Sequence[str], config: Optional[ERConfig] = None,
         raise ValueError(f"unknown executor {cfg.executor!r}")
     if cfg.kernel_impl not in IMPLS:
         raise ValueError(f"unknown kernel_impl {cfg.kernel_impl!r}")
-    _not_ported(cfg, fault_injector, feedback, mesh)
+    supervised = cfg.supervised_devices > 0 or fault_injector is not None
+    if supervised and cfg.executor != "catalog":
+        raise ValueError("supervised execution requires executor='catalog'")
+    _not_ported(cfg, mesh)
     dev = resolve_device(device)
+    if supervised and feedback is None and cfg.steal_factor is not None:
+        feedback = EwmaCostModel(max(cfg.supervised_devices, 1))
 
     def _sync():
         if dev.type == "cuda":
@@ -320,9 +365,35 @@ def run_er(titles: Sequence[str], config: Optional[ERConfig] = None,
     matches: Set[Tuple[int, int]] = set()
     reducer_seconds = np.zeros(cfg.r)
     sched_report: Optional[Dict] = None
+    sup = {"attempts": 1, "recovered_tiles": 0, "planned_cost": 0,
+           "scored_cost": 0, "steals": 0, "measured_makespan_s": 0.0}
+
+    def _stage1(catalog, feats_a, feats_b=None):
+        """Stage 1 of a catalog: plain, or through the supervisor with its
+        report folded into the run-level recovery accounting."""
+        threshold = cfg.threshold - cfg.filter_margin
+        if not supervised:
+            return execute(catalog, feats_a, feats_b, threshold=threshold,
+                           impl=cfg.kernel_impl,
+                           compact_capacity=cfg.compact_capacity, device=dev)
+        ca, cb, rep = execute_supervised(
+            catalog, feats_a, feats_b, threshold=threshold,
+            n_dev=max(cfg.supervised_devices, 1), impl=cfg.kernel_impl,
+            policy=cfg.schedule_policy, injector=fault_injector,
+            shard_deadline=cfg.shard_deadline_s,
+            max_retries=cfg.max_retries, backoff=cfg.backoff_s,
+            feedback=feedback, steal_factor=cfg.steal_factor,
+            steal_quantum=cfg.steal_quantum,
+            compact_capacity=cfg.compact_capacity, device=dev)
+        sup["attempts"] = max(sup["attempts"], rep.rounds)
+        for k in ("recovered_tiles", "planned_cost", "scored_cost",
+                  "steals"):
+            sup[k] += getattr(rep, k)
+        sup["measured_makespan_s"] += rep.measured_makespan_s
+        return ca, cb
 
     if cfg.executor == "catalog":
-        catalog, sched = compile_catalog(plan, cfg)
+        catalog, sched = compile_catalog(plan, cfg, extra)
         extra["catalog_tiles"] = catalog.num_tiles
         sched_report = sched.stats()
     timings["plan_s"] = time.perf_counter() - t_plan - bdm_seconds
@@ -339,10 +410,7 @@ def run_er(titles: Sequence[str], config: Optional[ERConfig] = None,
     if cfg.executor == "catalog":
         s1 = dict(stage1_stats)
         t0 = time.perf_counter()
-        ca, cb = execute(catalog, g_feats,
-                         threshold=cfg.threshold - cfg.filter_margin,
-                         impl=cfg.kernel_impl,
-                         compact_capacity=cfg.compact_capacity, device=dev)
+        ca, cb = _stage1(catalog, g_feats)
         t1 = time.perf_counter()
         ha, hb = verify_pairs(g_codes, g_lens, g_codes, g_lens, ca, cb,
                               cfg.threshold, device=dev)
@@ -385,13 +453,9 @@ def run_er(titles: Sequence[str], config: Optional[ERConfig] = None,
         lens_t = torch.from_numpy(lens).to(dev)
         null_t = torch.from_numpy(null_idx).to(dev)
         if cfg.executor == "catalog":
-            cross = lower(cross_job(n, int(null_idx.size), cfg.r),
-                          cfg.block_m, cfg.block_n)
-            ca, cb = execute(cross, feats_t, feats_t[null_t],
-                             threshold=cfg.threshold - cfg.filter_margin,
-                             impl=cfg.kernel_impl,
-                             compact_capacity=cfg.compact_capacity,
-                             device=dev)
+            xjob = cross_job(n, int(null_idx.size), cfg.r)
+            cross = lower(xjob, *_tile_geometry(xjob, cfg, extra))
+            ca, cb = _stage1(cross, feats_t, feats_t[null_t])
             ha, hb = verify_pairs(codes_t, lens_t, codes_t[null_t],
                                   lens_t[null_t], ca, cb, cfg.threshold,
                                   device=dev)
@@ -426,4 +490,10 @@ def run_er(titles: Sequence[str], config: Optional[ERConfig] = None,
         extra=extra,
         config=cfg,
         schedule=sched_report,
+        attempts=sup["attempts"],
+        recovered_tiles=sup["recovered_tiles"],
+        coverage=(sup["scored_cost"] / sup["planned_cost"]
+                  if sup["planned_cost"] else 1.0),
+        steals=sup["steals"],
+        measured_makespan_s=sup["measured_makespan_s"],
     )

@@ -9,6 +9,13 @@ is loaded from ``build/`` without compiling. nvcc's output (the
 back when the library is loaded from ``build/``. Nothing here runs at import
 time: the first launch builds, and :func:`build_all` builds every source
 at once, one ``nvcc`` per source, all started together.
+
+Building and loading are the only points where the port compiles or
+loads code at run time. Both run under one lock, so threads racing a
+first launch build and load each library once, and each emits an event
+(``"build"`` per nvcc run, ``"load"`` per ``ctypes`` load) to the
+listeners of :func:`add_listener` — what the service's
+``compile_counter`` counts.
 """
 from __future__ import annotations
 
@@ -17,12 +24,13 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Callable, Dict, List
 
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "BUILD_LOG", "nvcc_path",
-           "build_all", "load"]
+           "build_all", "load", "add_listener", "remove_listener"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(os.environ.get(
@@ -37,6 +45,26 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #          "log": nvcc's output, the -Xptxas -v report included}
 BUILD_LOG: Dict[str, Dict] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# Re-entrant: load() builds under the same lock that build_all() takes.
+_LOCK = threading.RLock()
+_LISTENERS: List[Callable[[str, str], None]] = []
+
+
+def add_listener(fn: Callable[[str, str], None]) -> None:
+    """Call ``fn(event, name)`` on every build ("build") and library load
+    ("load") from now on, in the thread that builds or loads."""
+    with _LOCK:
+        _LISTENERS.append(fn)
+
+
+def remove_listener(fn: Callable[[str, str], None]) -> None:
+    with _LOCK:
+        _LISTENERS.remove(fn)
+
+
+def _emit(event: str, name: str) -> None:
+    for fn in list(_LISTENERS):
+        fn(event, name)
 
 
 def nvcc_path() -> str:
@@ -61,6 +89,11 @@ def build_all(names: List[str] = None) -> Dict[str, Path]:
     """Compile every named source (default: all of ``csrc/*.cu``) that
     ``build/`` does not hold yet, in parallel. Raises with nvcc's output
     if a build fails."""
+    with _LOCK:
+        return _build_all(names)
+
+
+def _build_all(names) -> Dict[str, Path]:
     if names is None:
         names = sorted(p.stem for p in CSRC.glob("*.cu"))
     nvcc = nvcc_path()
@@ -87,13 +120,19 @@ def build_all(names: List[str] = None) -> Dict[str, Path]:
         os.replace(tmp, targets[n])
         BUILD_LOG[n] = {"cached": False,
                         "seconds": time.perf_counter() - t0, "log": log}
+        _emit("build", n)
     return targets
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library of ``csrc/<name>.cu``, built first if needed.
+    Thread-safe: racing first calls build and load it once."""
     lib = _LIBS.get(name)
     if lib is None:
-        path = build_all([name])[name]
-        lib = _LIBS[name] = ctypes.CDLL(str(path))
+        with _LOCK:
+            lib = _LIBS.get(name)
+            if lib is None:
+                path = build_all([name])[name]
+                lib = _LIBS[name] = ctypes.CDLL(str(path))
+                _emit("load", name)
     return lib

@@ -17,7 +17,7 @@ import torch
 
 from . import flash_attention, grouped_mm, pair_sim, ref
 
-__all__ = ["IMPLS", "resolve_impl", "pair_scores_catalog",
+__all__ = ["IMPLS", "resolve_impl", "pair_scores", "pair_scores_catalog",
            "pair_scores_catalog_compact", "grouped_matmul", "attention",
            "launch_counts", "reset_launch_counts"]
 
@@ -37,6 +37,19 @@ def resolve_impl(impl: str, device) -> str:
                          "tensors run the plain version (impl='auto' or "
                          "'torch')")
     return impl
+
+
+def pair_scores(a, b, *, threshold: float = 0.8, triangular: bool = False,
+                block_m: int = 128, block_n: int = 128, impl: str = "auto"):
+    """Dense thresholded (M, N) scores (see ``pair_sim.pair_scores``). The
+    plain version ignores the tile geometry, as the JAX package's "xla"
+    route does."""
+    if resolve_impl(impl, a.device) == "torch":
+        return ref.pair_scores_ref(a, b, threshold=threshold,
+                                   triangular=triangular)
+    return pair_sim.pair_scores(a, b, threshold=threshold,
+                                triangular=triangular, block_m=block_m,
+                                block_n=block_n)
 
 
 def pair_scores_catalog(a, b, catalog, *, threshold: float = 0.8,

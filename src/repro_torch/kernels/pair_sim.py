@@ -1,15 +1,17 @@
-"""Tile-catalog pair similarity — stage 1 of the ER match job — as CUDA
-kernels written by hand for Hopper (``csrc/pair_sim.cu``).
+"""Pair similarity — stage 1 of the ER match job and the dense score
+matrix — as CUDA kernels written by hand for Hopper (``csrc/pair_sim.cu``).
 
-Port of ``repro.kernels.pair_sim``'s catalog kernels. For catalog entry t
-the kernel scores ``A[a_tile·bm : +bm] · B[b_tile·bn : +bn]ᵀ`` in f32 and
-keeps a cell when ``score >= threshold`` and :func:`catalog_tile_mask`
-holds. Two entry points:
+Port of ``repro.kernels.pair_sim``. For catalog entry t the catalog
+kernels score ``A[a_tile·bm : +bm] · B[b_tile·bn : +bn]ᵀ`` in f32 and keep
+a cell when ``score >= threshold`` and :func:`catalog_tile_mask` holds.
+Three entry points:
 
   * :func:`pair_scores_catalog` — (T, bm, bn) f32 0/1 survivor masks;
   * :func:`pair_scores_catalog_compact` — ``(packed, counts)``: survivors'
     tile-local ids ``i·bn + j`` in row-major order, 0 past
-    ``min(count, capacity)``, and the EXACT per-tile count.
+    ``min(count, capacity)``, and the EXACT per-tile count;
+  * :func:`pair_scores` — the dense (M, N) f32 score matrix, 0 below the
+    threshold (and on or below the diagonal with ``triangular``).
 
 A wrapper checks its CUDA tensors and launches its kernel on the current
 stream, raising if the check or the launch fails; CPU tensors raise too.
@@ -34,8 +36,9 @@ import torch
 from . import build
 
 __all__ = ["NCOLS", "GEOMETRY_LATTICE", "SMEM_BUDGET_BYTES",
-           "catalog_smem_bytes", "check_smem", "catalog_tile_mask",
-           "pair_scores_catalog", "pair_scores_catalog_compact", "LAUNCHES"]
+           "catalog_smem_bytes", "dense_smem_bytes", "check_smem", "catalog_tile_mask",
+           "pair_scores_catalog", "pair_scores_catalog_compact",
+           "pair_scores", "LAUNCHES"]
 
 # Catalog entry layout (int32 columns), as in repro.kernels.pair_sim.
 # Rows/cols are *global* row indices of the feature matrices; a tile covers
@@ -64,16 +67,24 @@ _CHUNK = 32            # d columns staged per mainloop step
 _MAX_ACC = 128 * 128   # sub-tile cells: 64 accumulators per thread
 
 # Launches of each CUDA kernel, counted where the wrapper launches it.
-LAUNCHES = {"pair_scores_catalog": 0, "pair_scores_catalog_compact": 0}
+LAUNCHES = {"pair_scores_catalog": 0, "pair_scores_catalog_compact": 0,
+            "pair_scores": 0}
+
+
+def dense_smem_bytes(block_m: int, block_n: int) -> int:
+    """Dynamic shared memory of one block of the dense kernel: two
+    transposed (+1 padded) 32-column strip chunks of the sub-tile (its
+    scores go straight to device memory)."""
+    sn = min(block_n, 128)
+    sm = min(block_m, _MAX_ACC // sn)
+    return 4 * _CHUNK * ((sm + 1) + (sn + 1))
 
 
 def catalog_smem_bytes(block_m: int, block_n: int) -> int:
-    """Dynamic shared memory of one block of the catalog kernels: two
-    transposed (+1 padded) 32-column strip chunks of the sub-tile plus the
-    tile's keep bits. Neither d nor the capacity enters (see above)."""
-    sn = min(block_n, 128)
-    sm = min(block_m, _MAX_ACC // sn)
-    return 4 * (_CHUNK * ((sm + 1) + (sn + 1)) + block_m * block_n // 32)
+    """Dynamic shared memory of one block of the catalog kernels: the dense
+    kernel's staged chunks plus the tile's keep bits. Neither d nor the
+    capacity enters (see above)."""
+    return dense_smem_bytes(block_m, block_n) + 4 * (block_m * block_n // 32)
 
 
 def check_smem(block_m: int, block_n: int) -> None:
@@ -107,6 +118,9 @@ def _lib() -> ctypes.CDLL:
         lib.pair_sim_catalog_launch.argtypes = (
             [i, i, i, p, p, p] + [i] * 6 + [ctypes.c_float, p, p, p, i, p])
         lib.pair_sim_catalog_launch.restype = i
+        lib.pair_sim_dense_launch.argtypes = (
+            [i, i, p, p] + [i] * 5 + [ctypes.c_float, i, p, p])
+        lib.pair_sim_dense_launch.restype = i
         lib.pair_sim_smem_bytes.argtypes = [i, i]
         lib.pair_sim_smem_bytes.restype = i
         lib.pair_sim_error_string.argtypes = [i]
@@ -115,12 +129,10 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(a, b, catalog, block_m, block_n, capacity=None):
-    dev = a.device
-    if dev.type != "cuda" or b.device != dev or catalog.device != dev:
-        raise ValueError("the CUDA kernel needs a, b and catalog on one "
-                         f"CUDA device (got {a.device}, {b.device}, "
-                         f"{catalog.device})")
+def _check_features(a, b):
+    if a.device.type != "cuda" or b.device != a.device:
+        raise ValueError("the CUDA kernel needs a and b on one CUDA device "
+                         f"(got {a.device}, {b.device})")
     if a.dtype not in (torch.float32, torch.bfloat16) or b.dtype != a.dtype:
         raise ValueError(f"a and b must both be float32 or bfloat16 "
                          f"(got {a.dtype}, {b.dtype})")
@@ -128,15 +140,23 @@ def _check(a, b, catalog, block_m, block_n, capacity=None):
             or a.shape[1] < 1:
         raise ValueError(f"a (M, d) and b (N, d) with d >= 1 expected "
                          f"(got {tuple(a.shape)}, {tuple(b.shape)})")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("a and b must be contiguous")
+    if max(a.numel(), b.numel()) >= 2 ** 31 - 1:
+        raise ValueError("feature matrices must hold < 2**31 elements")
+
+
+def _check(a, b, catalog, block_m, block_n, capacity=None):
+    _check_features(a, b)
+    if catalog.device != a.device:
+        raise ValueError(f"the catalog must lie on {a.device} (got "
+                         f"{catalog.device})")
     if catalog.dtype != torch.int32 or catalog.dim() != 2 \
             or catalog.shape[1] != NCOLS:
         raise ValueError(f"catalog must be (T, {NCOLS}) int32 (got "
                          f"{tuple(catalog.shape)} {catalog.dtype})")
-    if not (a.is_contiguous() and b.is_contiguous()
-            and catalog.is_contiguous()):
-        raise ValueError("a, b and catalog must be contiguous")
-    if max(a.numel(), b.numel()) >= 2 ** 31 - 1:
-        raise ValueError("feature matrices must hold < 2**31 elements")
+    if not catalog.is_contiguous():
+        raise ValueError("the catalog must be contiguous")
     if capacity is not None and not 1 <= capacity <= block_m * block_n:
         raise ValueError(f"capacity must lie in [1, {block_m * block_n}] "
                          f"(got {capacity})")
@@ -200,3 +220,36 @@ def pair_scores_catalog_compact(a, b, catalog, *, threshold: float = 0.8,
                 packed=packed, counts=counts, capacity=capacity)
         LAUNCHES["pair_scores_catalog_compact"] += 1
     return packed, counts
+
+
+def pair_scores(a, b, *, threshold: float = 0.8, triangular: bool = False,
+                block_m: int = 128, block_n: int = 128):
+    """Thresholded scores of every (row of a) × (row of b).
+
+    a: (M, d), b: (N, d) float32 or bfloat16 on one CUDA device. Returns
+    (M, N) float32: the f32 dot where it is >= ``threshold`` (compared in
+    f32) and, with ``triangular``, row < col; 0 elsewhere. One block per
+    (block_m, block_n) output tile; ragged M, N and d are masked in the
+    kernel, so nothing is padded or copied.
+    """
+    _check_features(a, b)
+    if (block_m, block_n) not in GEOMETRY_LATTICE:
+        raise ValueError(f"tile geometry ({block_m}, {block_n}) is not in "
+                         f"the kernel's lattice {GEOMETRY_LATTICE}")
+    m, n = a.shape[0], b.shape[0]
+    if -(-m // block_m) > 65_535:
+        raise ValueError(f"M = {m} needs more than 65,535 row tiles of "
+                         f"{block_m}")
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    if m and n:
+        lib = _lib()
+        err = lib.pair_sim_dense_launch(
+            int(a.dtype == torch.bfloat16), a.device.index, a.data_ptr(),
+            b.data_ptr(), m, n, a.shape[1], block_m, block_n,
+            float(np.float32(threshold)), int(bool(triangular)),
+            out.data_ptr(), torch.cuda.current_stream(a.device).cuda_stream)
+        if err:
+            raise RuntimeError("pair_sim dense kernel launch failed: "
+                               + lib.pair_sim_error_string(err).decode())
+        LAUNCHES["pair_scores"] += 1
+    return out

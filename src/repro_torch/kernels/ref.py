@@ -2,7 +2,9 @@
 dispatcher in ``ops.py``, the oracle of the CPU tests, and what
 ``chip_smoke.py`` holds each CUDA kernel against on the card.
 
-Ports of ``repro.kernels.ref``'s ``pair_scores_catalog_ref``,
+Ports of ``repro.kernels.ref``'s ``pair_scores_ref`` (one f32 ``einsum``
+with TF32 off, the threshold and the optional strict upper triangle),
+``pair_scores_catalog_ref``,
 ``pack_survivor_mask`` and ``pair_scores_catalog_compact_ref`` (a gather of
 the strips, an f32 ``einsum`` with TF32 off, the catalog predicate, and a
 cumsum-plus-scatter pack with a dump slot; the threshold is compared in
@@ -16,7 +18,7 @@ import contextlib
 import numpy as np
 import torch
 
-__all__ = ["pair_scores_catalog_ref", "pack_survivor_mask",
+__all__ = ["pair_scores_ref", "pair_scores_catalog_ref", "pack_survivor_mask",
            "pair_scores_catalog_compact_ref", "grouped_matmul_ref",
            "attention_ref", "full_precision"]
 
@@ -31,6 +33,20 @@ def full_precision():
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def pair_scores_ref(a, b, *, threshold: float = 0.8,
+                    triangular: bool = False):
+    """(M, d) × (N, d) → (M, N) f32: the f32 dot where it is >= threshold
+    (compared in f32) and, with ``triangular``, row < col; 0 elsewhere.
+    Same function as ``pair_sim.pair_scores``."""
+    with full_precision():
+        s = torch.einsum("md,nd->mn", a.to(torch.float32),
+                         b.to(torch.float32))
+    keep = s >= float(np.float32(threshold))
+    if triangular:
+        keep = keep & torch.ones_like(keep).triu(1)
+    return torch.where(keep, s, torch.zeros((), device=s.device))
 
 
 def _strips(x, tiles, block: int):

@@ -216,3 +216,99 @@ def test_generate_on_card_equals_cpu(cuda, arch):
     ref_logits = make_prefill(cfg, device="cpu")(
         cpu, batch, mod.init_cache(cfg, 2, 301, device="cpu"))[0]
     assert torch.allclose(logits.cpu(), ref_logits, atol=2e-3, rtol=1e-2)
+
+
+# ---------------------------------------------------------------------------
+# The dense pair_scores kernel, the resident service and the supervisor on
+# the card (tolerances of tests/test_kernels.py: 1e-5 f32, 2e-2 bf16)
+# ---------------------------------------------------------------------------
+
+DENSE_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+@pytest.mark.parametrize("m,n,d", [(64, 64, 32), (200, 130, 64),
+                                   (128, 128, 256), (257, 31, 128),
+                                   (1024, 1024, 256), (300, 700, 7)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("triangular", [False, True])
+@pytest.mark.parametrize("bm,bn", [(64, 64), (128, 128), (256, 256),
+                                   (32, 128)])
+def test_dense_kernel_equals_plain(cuda, m, n, d, dtype, triangular, bm, bn):
+    rng = np.random.default_rng(m + d)
+    a = rng.standard_normal((m, d)).astype(np.float32)
+    b = rng.standard_normal((n, d)).astype(np.float32)
+    a /= np.linalg.norm(a, axis=1, keepdims=True)
+    b /= np.linalg.norm(b, axis=1, keepdims=True)
+    dt = getattr(torch, dtype)
+    ta, tb = (torch.from_numpy(x).to(cuda, dt) for x in (a, b))
+    kw = dict(threshold=0.05, triangular=triangular)
+    ops.reset_launch_counts()
+    got = ops.pair_scores(ta, tb, block_m=bm, block_n=bn, impl="cuda", **kw)
+    assert ops.launch_counts()["pair_scores"] == 1
+    want = ops.pair_scores(ta, tb, impl="torch", **kw)
+    torch.cuda.synchronize()
+    assert got.shape == (m, n) and got.dtype == torch.float32
+    # a cell may be kept on one side only where its score lies within the
+    # tolerance of the threshold
+    err = (got - want).abs()
+    s = want.where(want != 0, got)
+    flip = (got == 0) != (want == 0)
+    assert bool(((s[flip] - 0.05).abs() <= DENSE_TOL[dtype]).all())
+    assert err[~flip].max().item() <= DENSE_TOL[dtype]
+    if triangular:
+        assert not got.tril().any()
+
+
+def test_dense_wrapper_raises(cuda):
+    f = torch.zeros((64, 32), device=cuda)
+    with pytest.raises(ValueError):
+        pair_sim.pair_scores(f, f, block_m=16, block_n=16)
+    with pytest.raises(ValueError):
+        pair_sim.pair_scores(f.double(), f.double())
+    with pytest.raises(ValueError):
+        pair_sim.pair_scores(f, f.cpu())
+
+
+def _service_workload():
+    ds = make_products(700, seed=2)
+    corpus = list(ds.titles[:600]) + ["", "   "]
+    queries = (list(ds.titles[600:680]) + ["", "@@@ never seen block 01"]
+               + list(ds.titles[:5]))
+    return corpus, queries
+
+
+def test_service_on_card_equals_cpu(cuda):
+    from repro_torch.er import ERService, ServiceConfig, compile_counter
+
+    corpus, queries = _service_workload()
+    cfg = ServiceConfig(r=8, m=4, feature_dim=128, max_len=48,
+                        query_buckets=(8, 32, 64), tile_chunk=64)
+    card = ERService(corpus, cfg, device="cuda")
+    cpu = ERService(corpus, cfg, device="cpu")
+    card.warmup()
+    ops.reset_launch_counts()
+    with compile_counter() as steady:
+        for lo, hi in ((0, 7), (7, 40), (40, len(queries))):
+            assert set(card.match(queries[lo:hi])) == set(
+                cpu.match(queries[lo:hi]))
+    assert steady.count == 0
+    assert ops.launch_counts()["pair_scores_catalog_compact"] > 0
+    assert card.stats["planned_pairs"] == cpu.stats["planned_pairs"]
+    assert card.stats["bucket_hits"] == cpu.stats["bucket_hits"]
+
+
+def test_supervised_run_er_on_card(cuda):
+    from repro_torch.er import FaultInjector, FaultScript
+
+    titles = list(make_products(1500, seed=3).titles)
+    base = dict(r=8, m=4, feature_dim=128, max_len=48)
+    want = run_er(titles, ERConfig(**base), device="cpu")
+    script = FaultScript.random(0, 4, 8, straggle_delay=1e6)
+    got = run_er(titles, ERConfig(supervised_devices=4, max_retries=10,
+                                  shard_deadline_s=60.0, **base),
+                 fault_injector=FaultInjector(script), device="cuda")
+    assert got.matches == want.matches
+    assert got.coverage == 1.0
+    tuned = run_er(titles, ERConfig(tune_tiles=True, **base),
+                   device="cuda")
+    assert tuned.matches == want.matches

@@ -76,14 +76,25 @@ def test_capacity_four_forces_the_exact_mask_fallback(skewed):
 
 
 @pytest.mark.parametrize("option", [
-    dict(mesh=object()), dict(fault_injector=object()),
-    dict(feedback=object()), dict(config=dict(supervised_devices=2)),
+    dict(mesh=object()),
+    dict(fault_injector=ter.FaultInjector(ter.FaultScript((), 1))),
+    dict(feedback=ter.EwmaCostModel(1)),
+    dict(config=dict(supervised_devices=2)),
     dict(config=dict(tune_tiles=True)), dict(config=dict(comms="ring"))])
 def test_later_slices_raise_not_implemented(option):
+    """The mesh slice's options (mesh=, non-flat comms) raise, naming ROADMAP
+    Queue 1 item 10; the options of the tuning, feedback and supervisor
+    slices, ported since, run and find the pair."""
     kwargs = dict(option)
     cfg = ter.ERConfig(**kwargs.pop("config", {}))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        ter.run_er(["abc def", "abc deg"], cfg, device="cpu", **kwargs)
+    titles = ["abc def", "abc deg"]
+    if "mesh" in kwargs or cfg.comms != "flat":
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP Queue 1: .*item 10"):
+            ter.run_er(titles, cfg, device="cpu", **kwargs)
+    else:
+        res = ter.run_er(titles, cfg, device="cpu", **kwargs)
+        assert res.matches == {(0, 1)} and res.coverage == 1.0
 
 
 def test_entry_points_default_to_cuda_and_never_fall_back():
