@@ -32,22 +32,32 @@
 //
 // What the design does about it: 256 threads in a 16x16 grid per block. The
 // tile is cut into sub-tiles of at most 128x128 cells so each thread keeps
-// at most 64 accumulators in registers (a strided 8x8 micro-tile at
-// 128x128). The d axis streams through shared memory in chunks of 32
-// columns, staged transposed with a +1 pad so neither the stores nor the
-// inner-loop reads conflict on banks; bf16 is widened to f32 on the way in.
-// Ragged rows past M/N and ragged d are masked here, so the wrappers never
-// pad a feature matrix. Catalog kernels: one block per entry; the keep bits
-// of the whole tile go to shared memory; the compact epilogue gives each
-// thread a contiguous run of bit words, counts it with popc, takes an
-// exclusive block scan (warp shuffles) and writes ids in row-major order --
-// the order the host decode relies on. Entries with an empty validity
-// window (the zero rows that pad a chunk) skip the mainloop. Dense kernel:
-// each thread writes its accumulators straight to device memory (a half
-// warp covers 16 consecutive columns); with `triangular` a tile wholly on or
+// at most 64 accumulators in registers. A thread owns a contiguous
+// micro-tile: at 128x128 two 4-row by two 4-column runs (rows ty*4 and
+// 64 + ty*4, columns tx*4 and 64 + tx*4), so each k step reads its operands
+// with four 16-byte shared loads for 64 FMAs (16 FMAs a load). The d axis
+// streams through shared memory in chunks of 32 columns, stored transposed
+// (k-major) with the 4-float groups of a k row XOR-swizzled by (k / 4) % 8,
+// so the transposed stores and the 16-byte reads are both free of bank
+// conflicts without padding. Staging is pipelined through registers into
+// two shared stages: each thread issues the global loads of chunk c + 1
+// (16-byte loads where d and the base allow, scalar otherwise; bf16 widened
+// to f32 on the way) before it runs chunk c's FMAs, then stores them into
+// the other stage, so the load latency hides behind the FMAs and each chunk
+// costs one __syncthreads. Ragged rows past M/N and ragged d are masked
+// here, so the wrappers never pad a feature matrix. Catalog kernels: one
+// block per entry; each thread turns its run of 2 or 4 cells into bits, the
+// lanes that share a 32-bit word of the tile's keep bits OR them with warp
+// shuffles, and one lane stores the word (no shared atomics); the compact
+// epilogue gives each thread a contiguous run of bit words, counts it with
+// popc, takes an exclusive block scan (warp shuffles) and writes ids in
+// row-major order -- the order the host decode relies on. Entries with an
+// empty validity window (the zero rows that pad a chunk) skip the mainloop.
+// Dense kernel: each thread writes its runs straight to device memory
+// (16-byte stores where N allows); with `triangular` a tile wholly on or
 // below the diagonal writes zeros and skips the mainloop, so the triangular
-// case does about half the work. Not done yet: wgmma, TMA and a multistage
-// pipeline -- work for a later PR.
+// case does about half the work. Not done yet: a persistent block that
+// prefetches the next entry's strips during the epilogue.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,6 +68,9 @@ namespace {
 constexpr int kThreads = 256;          // a 16 x 16 thread grid
 constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 32;             // d columns staged per mainloop step
+static_assert(kThreads == 8 * 32 && kChunk == 32,
+              "the stager maps 8 threads x 4 columns to a chunk row");
+constexpr int kStages = 2;             // shared stages of the staging ring
 constexpr int kNcols = 13;             // catalog entry width (pair_sim.NCOLS)
 constexpr int kMaxAcc = 128 * 128;     // sub-tile cells: <= 64 per thread
 
@@ -68,33 +81,101 @@ template <int BM, int BN>
 struct Geometry {
   static constexpr int SN = BN < 128 ? BN : 128;                   // sub-tile cols
   static constexpr int SM = BM < kMaxAcc / SN ? BM : kMaxAcc / SN; // sub-tile rows
-  static constexpr int TM = SM / 16;   // rows per thread, strided by 16
-  static constexpr int TN = SN / 16;   // cols per thread, strided by 16
-  static constexpr int LDA = SM + 1;   // +1 pad: conflict-free transposed stores
-  static constexpr int LDB = SN + 1;
+  static constexpr int TM = SM / 16;   // rows per thread
+  static constexpr int TN = SN / 16;   // cols per thread
+  static constexpr int VM = TM < 4 ? TM : 4;   // contiguous rows in a run
+  static constexpr int VN = TN < 4 ? TN : 4;   // contiguous cols in a run
   static constexpr int WORDS = BM * BN / 32;                // keep bits
-  static constexpr int STAGE_FLOATS = kChunk * (LDA + LDB);
-  static constexpr int SMEM_BYTES = (STAGE_FLOATS + WORDS) * 4;
+  // kStages x (A chunk + B chunk), each kChunk rows of SM / SN floats
+  static constexpr int STAGE_FLOATS = kChunk * (SM + SN);
+  static constexpr int RING_FLOATS = kStages * STAGE_FLOATS;
+  static constexpr int SMEM_BYTES = (RING_FLOATS + WORDS) * 4;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+// Four consecutive elements x[gk, gk + 4) of one row as f32; `vec` says that
+// d % 4 == 0 and the rows are aligned for one 16-byte (f32) or 8-byte (bf16)
+// load, so the four are either all inside d or all past it.
+__device__ __forceinline__ float4 load_run(const float* p, int gk, int d,
+                                           bool vec) {
+  if (vec) return gk < d ? *reinterpret_cast<const float4*>(p) : float4{};
+  return make_float4(gk < d ? p[0] : 0.f, gk + 1 < d ? p[1] : 0.f,
+                     gk + 2 < d ? p[2] : 0.f, gk + 3 < d ? p[3] : 0.f);
+}
+__device__ __forceinline__ float4 load_run(const __nv_bfloat16* p, int gk,
+                                           int d, bool vec) {
+  if (vec) {
+    if (gk >= d) return float4{};
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    const float2 lo = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 hi = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    return make_float4(lo.x, lo.y, hi.x, hi.y);
+  }
+  return make_float4(gk < d ? __bfloat162float(p[0]) : 0.f,
+                     gk + 1 < d ? __bfloat162float(p[1]) : 0.f,
+                     gk + 2 < d ? __bfloat162float(p[2]) : 0.f,
+                     gk + 3 < d ? __bfloat162float(p[3]) : 0.f);
 }
 
-// Rows [row0, row0 + ROWS) x columns [k0, k0 + kChunk) of x (nrows, d),
-// transposed into dst[k * LD + r]; out-of-range cells read as 0.
-template <typename T, int ROWS, int LD>
-__device__ __forceinline__ void stage(const T* __restrict__ x, int nrows,
-                                      int d, int row0, int k0,
-                                      float* __restrict__ dst) {
-#pragma unroll 4
-  for (int e = threadIdx.x; e < ROWS * kChunk; e += kThreads) {
-    const int r = e / kChunk, k = e % kChunk;
-    const int gr = row0 + r, gk = k0 + k;
-    float v = 0.f;
-    if (gr < nrows && gk < d) v = to_f32(x[(size_t)gr * d + gk]);
-    dst[k * LD + r] = v;
+// Index of row r, column k of a transposed chunk of ROWS rows: k-major, the
+// 4-float groups of each k row XOR-swizzled by k / 4 (k < 32). A warp's
+// transposed stores (8 k-quads x 4 rows) and its 16-byte reads of a k row
+// then hit 32 distinct banks.
+template <int ROWS>
+__device__ __forceinline__ int swz(int k, int r) {
+  return k * ROWS + (((r >> 2) ^ (k >> 2)) << 2) + (r & 3);
+}
+
+// One thread's share of a chunk of ROWS rows x kChunk columns, held in
+// registers between its global loads and its shared stores: thread
+// (rr, kq) = (tid / 8, tid % 8) takes columns [4kq, 4kq + 4) of rows
+// rr, rr + 32, ...
+template <typename T, int ROWS>
+struct Stager {
+  static constexpr int kPasses = ROWS / 32;
+  float4 v[kPasses];
+
+  __device__ __forceinline__ void load(const T* __restrict__ x, int nrows,
+                                       int d, int row0, int k0, bool vec) {
+    const int kq = threadIdx.x & 7, rr = threadIdx.x >> 3;
+    const int gk = k0 + kq * 4;
+#pragma unroll
+    for (int p = 0; p < kPasses; ++p) {
+      const int gr = row0 + rr + 32 * p;
+      v[p] = gr < nrows ? load_run(x + (size_t)gr * d + gk, gk, d, vec)
+                        : float4{};
+    }
+  }
+
+  __device__ __forceinline__ void store(float* __restrict__ dst) const {
+    const int kq = threadIdx.x & 7, rr = threadIdx.x >> 3;
+#pragma unroll
+    for (int p = 0; p < kPasses; ++p) {
+      const int r = rr + 32 * p;
+      dst[swz<ROWS>(kq * 4 + 0, r)] = v[p].x;
+      dst[swz<ROWS>(kq * 4 + 1, r)] = v[p].y;
+      dst[swz<ROWS>(kq * 4 + 2, r)] = v[p].z;
+      dst[swz<ROWS>(kq * 4 + 3, r)] = v[p].w;
+    }
+  }
+};
+
+// V contiguous floats of k row k starting at row r0 (r0 % V == 0, V <= 4:
+// one shared load of 8 or 16 bytes).
+template <int ROWS, int V>
+__device__ __forceinline__ void read_run(const float* src, int k, int r0,
+                                         float* out) {
+  const float* p = src + swz<ROWS>(k, r0);
+  if constexpr (V == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    out[0] = x.x; out[1] = x.y; out[2] = x.z; out[3] = x.w;
+  } else if constexpr (V == 2) {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    out[0] = x.x; out[1] = x.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) out[i] = p[i];
   }
 }
 
@@ -108,60 +189,104 @@ __device__ __forceinline__ bool in_entry(const int* e, int gi, int gj) {
 
 // The shared mainloop: the f32 dot of rows [row0, row0 + BM) of a with
 // rows [col0, col0 + BN) of b, one sub-tile of at most 128x128 cells at a
-// time; epi(li, lj, s) gets every cell's tile-local row, col and score.
+// time. Thread (ty, tx) owns rows (i / VM) * 16 VM + ty VM + i % VM and
+// columns (j / VN) * 16 VN + tx VN + j % VN of each sub-tile. epi(li, lj, s)
+// gets a run of VN cells: tile-local row li, columns [lj, lj + VN), scores
+// s[0, VN); every thread of the block calls it the same number of times in
+// the same order (warp-uniform, so it may shuffle). `ring` holds kStages
+// stages of (A chunk, B chunk).
 template <typename T, int BM, int BN, typename Epilogue>
 __device__ __forceinline__ void tile_mainloop(
     const T* __restrict__ a, const T* __restrict__ b, int m, int n, int d,
-    int row0, int col0, float* As, float* Bs, Epilogue epi) {
+    int row0, int col0, float* ring, Epilogue epi) {
   using G = Geometry<BM, BN>;
+  constexpr int TM = G::TM, TN = G::TN, VM = G::VM, VN = G::VN;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int chunks = (d + kChunk - 1) / kChunk;
+  const bool vec = d % 4 == 0 &&
+                   (reinterpret_cast<uintptr_t>(a) |
+                    reinterpret_cast<uintptr_t>(b)) % (4 * sizeof(T)) == 0;
+  Stager<T, G::SM> sa;
+  Stager<T, G::SN> sb;
   for (int pm = 0; pm < BM; pm += G::SM) {
     for (int pn = 0; pn < BN; pn += G::SN) {
-      float acc[G::TM][G::TN];
+      float acc[TM][TN];
 #pragma unroll
-      for (int i = 0; i < G::TM; ++i)
+      for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < G::TN; ++j) acc[i][j] = 0.f;
-      for (int k0 = 0; k0 < d; k0 += kChunk) {
-        stage<T, G::SM, G::LDA>(a, m, d, row0 + pm, k0, As);
-        stage<T, G::SN, G::LDB>(b, n, d, col0 + pn, k0, Bs);
-        __syncthreads();
+        for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+      // prologue: chunk 0 into stage 0 (the stages are free: every thread
+      // passed the last chunk's barrier of the previous sub-tile)
+      sa.load(a, m, d, row0 + pm, 0, vec);
+      sb.load(b, n, d, col0 + pn, 0, vec);
+      sa.store(ring);
+      sb.store(ring + kChunk * G::SM);
+      __syncthreads();
+      for (int c = 0; c < chunks; ++c) {
+        const bool more = c + 1 < chunks;
+        if (more) {  // chunk c + 1's loads are in flight during chunk c
+          sa.load(a, m, d, row0 + pm, (c + 1) * kChunk, vec);
+          sb.load(b, n, d, col0 + pn, (c + 1) * kChunk, vec);
+        }
+        const float* As = ring + (c % kStages) * G::STAGE_FLOATS;
+        const float* Bs = As + kChunk * G::SM;
 #pragma unroll
         for (int k = 0; k < kChunk; ++k) {
-          float fa[G::TM], fb[G::TN];
+          float fa[TM], fb[TN];
 #pragma unroll
-          for (int i = 0; i < G::TM; ++i) fa[i] = As[k * G::LDA + ty + 16 * i];
+          for (int i = 0; i < TM; i += VM)
+            read_run<G::SM, VM>(As, k, (i / VM) * 16 * VM + ty * VM, fa + i);
 #pragma unroll
-          for (int j = 0; j < G::TN; ++j) fb[j] = Bs[k * G::LDB + tx + 16 * j];
+          for (int j = 0; j < TN; j += VN)
+            read_run<G::SN, VN>(Bs, k, (j / VN) * 16 * VN + tx * VN, fb + j);
 #pragma unroll
-          for (int i = 0; i < G::TM; ++i)
+          for (int i = 0; i < TM; ++i)
 #pragma unroll
-            for (int j = 0; j < G::TN; ++j)
+            for (int j = 0; j < TN; ++j)
               acc[i][j] = fmaf(fa[i], fb[j], acc[i][j]);
+        }
+        if (more) {
+          // the stage chunk c - 1 used: every thread passed the barrier
+          // that ended chunk c - 1
+          float* next = ring + ((c + 1) % kStages) * G::STAGE_FLOATS;
+          sa.store(next);
+          sb.store(next + kChunk * G::SM);
         }
         __syncthreads();
       }
 #pragma unroll
-      for (int i = 0; i < G::TM; ++i)
+      for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < G::TN; ++j)
-          epi(pm + ty + 16 * i, pn + tx + 16 * j, acc[i][j]);
+        for (int j = 0; j < TN; j += VN)
+          epi(pm + (i / VM) * 16 * VM + ty * VM + i % VM,
+              pn + (j / VN) * 16 * VN + tx * VN, &acc[i][j]);
     }
   }
 }
 
-// The catalog kernels' keep bits: bit i*BN + j of `bits` for every kept cell.
+// The catalog kernels' keep bits: bit i*BN + j of `bits` for every kept
+// cell. A 32-bit word covers 32 / VN consecutive lanes of one half-warp
+// (one row); they OR their runs' bits with shuffles and the first stores it.
 template <typename T, int BM, int BN>
 __device__ __forceinline__ void tile_keep_bits(
     const T* __restrict__ a, const T* __restrict__ b, int m, int n, int d,
-    const int* entry, float threshold, float* As, float* Bs, uint32_t* bits) {
+    const int* entry, float threshold, float* ring, uint32_t* bits) {
+  constexpr int VN = Geometry<BM, BN>::VN;
+  constexpr int kLanes = 32 / VN;            // lanes per word, <= 16
   const int row0 = entry[A_TILE] * BM, col0 = entry[B_TILE] * BN;
   tile_mainloop<T, BM, BN>(
-      a, b, m, n, d, row0, col0, As, Bs, [&](int li, int lj, float s) {
-        if (s >= threshold && in_entry(entry, row0 + li, col0 + lj)) {
-          const int c = li * BN + lj;
-          atomicOr(&bits[c >> 5], 1u << (c & 31));
-        }
+      a, b, m, n, d, row0, col0, ring,
+      [&](int li, int lj, const float* s) {
+        uint32_t word = 0;
+#pragma unroll
+        for (int j = 0; j < VN; ++j)
+          if (s[j] >= threshold && in_entry(entry, row0 + li, col0 + lj + j))
+            word |= 1u << j;
+        word <<= lj & 31;
+#pragma unroll
+        for (int o = 1; o < kLanes; o <<= 1)
+          word |= __shfl_xor_sync(0xffffffffu, word, o);
+        if ((lj & 31) == 0) bits[(li * BN + lj) >> 5] = word;
       });
 }
 
@@ -232,7 +357,7 @@ __device__ __forceinline__ void mask_epilogue(const uint32_t* bits,
 }
 
 template <typename T, int BM, int BN, bool kCompact>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
     catalog_kernel(const T* __restrict__ a, const T* __restrict__ b,
                    const int* __restrict__ catalog, int m, int n, int d,
                    float threshold, float* __restrict__ mask,
@@ -242,9 +367,7 @@ __global__ void __launch_bounds__(kThreads)
   extern __shared__ float smem[];
   __shared__ int entry[kNcols];
   __shared__ int warp_sums[kWarps];
-  float* As = smem;
-  float* Bs = smem + kChunk * G::LDA;
-  uint32_t* bits = reinterpret_cast<uint32_t*>(smem + G::STAGE_FLOATS);
+  uint32_t* bits = reinterpret_cast<uint32_t*>(smem + G::RING_FLOATS);
 
   const int t = blockIdx.x;
   if (threadIdx.x < kNcols)
@@ -254,7 +377,7 @@ __global__ void __launch_bounds__(kThreads)
   // An empty validity window (the all-zero rows that pad a chunk) keeps
   // nothing; the condition is uniform over the block.
   if (entry[R0] < entry[R1] && entry[C0] < entry[C1])
-    tile_keep_bits<T, BM, BN>(a, b, m, n, d, entry, threshold, As, Bs, bits);
+    tile_keep_bits<T, BM, BN>(a, b, m, n, d, entry, threshold, smem, bits);
   __syncthreads();
   if constexpr (kCompact) {
     compact_epilogue<BM, BN>(bits, packed + (size_t)t * capacity, counts + t,
@@ -267,13 +390,12 @@ __global__ void __launch_bounds__(kThreads)
 // Dense thresholded scores: block (blockIdx.y, blockIdx.x) owns rows
 // [by*BM, +BM) x cols [bx*BN, +BN) of the (m, n) f32 output.
 template <typename T, int BM, int BN>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
     dense_kernel(const T* __restrict__ a, const T* __restrict__ b, int m,
                  int n, int d, float threshold, int triangular,
                  float* __restrict__ out) {
+  constexpr int VN = Geometry<BM, BN>::VN;
   extern __shared__ float smem[];
-  float* As = smem;
-  float* Bs = smem + kChunk * Geometry<BM, BN>::LDA;
   const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
   if (triangular && row0 >= col0 + BN - 1) {
     // Every cell has row >= col: nothing is kept (uniform over the block).
@@ -283,12 +405,30 @@ __global__ void __launch_bounds__(kThreads)
     }
     return;
   }
+  // A run of VN cells is one aligned vector store when N is a multiple of
+  // VN (col0 and the run's offset are).
+  const bool vec = n % VN == 0;
   tile_mainloop<T, BM, BN>(
-      a, b, m, n, d, row0, col0, As, Bs, [&](int li, int lj, float s) {
+      a, b, m, n, d, row0, col0, smem, [&](int li, int lj, const float* s) {
         const int gi = row0 + li, gj = col0 + lj;
-        if (gi < m && gj < n) {
-          const bool keep = s >= threshold && (!triangular || gi < gj);
-          out[(size_t)gi * n + gj] = keep ? s : 0.f;
+        if (gi >= m) return;
+        float v[VN];
+#pragma unroll
+        for (int j = 0; j < VN; ++j)
+          v[j] = s[j] >= threshold && (!triangular || gi < gj + j) ? s[j]
+                                                                    : 0.f;
+        float* o = out + (size_t)gi * n + gj;
+        if (vec && gj < n) {
+          if constexpr (VN == 4)
+            *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+          else if constexpr (VN == 2)
+            *reinterpret_cast<float2*>(o) = make_float2(v[0], v[1]);
+          else
+            o[0] = v[0];
+        } else if (!vec) {
+#pragma unroll
+          for (int j = 0; j < VN; ++j)
+            if (gj + j < n) o[j] = v[j];
         }
       });
 }
@@ -336,7 +476,7 @@ template <typename T, int BM, int BN>
 cudaError_t launch_dense(const void* a, const void* b, int m, int n, int d,
                          float threshold, int triangular, void* out,
                          cudaStream_t stream) {
-  constexpr int kSmem = Geometry<BM, BN>::STAGE_FLOATS * 4;
+  constexpr int kSmem = Geometry<BM, BN>::RING_FLOATS * 4;
   auto kernel = dense_kernel<T, BM, BN>;
   if (kSmem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(

@@ -38,6 +38,8 @@ def _lib() -> ctypes.CDLL:
         lib.flash_attention_launch.argtypes = (
             [i, i, p, p, p, p] + [i] * 5 + [ctypes.c_float, i, p])
         lib.flash_attention_launch.restype = i
+        lib.flash_attention_smem_bytes.argtypes = [i, i]
+        lib.flash_attention_smem_bytes.restype = i
         lib.flash_attention_error_string.argtypes = [i]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -45,11 +47,17 @@ def _lib() -> ctypes.CDLL:
 
 
 def smem_bytes(head_dim: int, bf16: bool) -> int:
-    """Dynamic shared memory of one block of the kernel: the q, k and v
-    tiles (64 rows of head_dim + 8 bf16) for bf16; for f32 the q and k
-    tiles (32 rows of head_dim + 1), the v tile and the 32 × 33 p tile."""
+    """Dynamic shared memory of one block of the kernel. bf16: 1,024 bytes
+    of alignment slack, two 128-row q tiles (the persistent block loads the
+    next work item's while it finishes one), a 3-stage ring of K and V
+    tiles (128 rows, 64 at head dim 128) and 13 8-byte mbarriers (q full
+    and empty per q tile, k full, v full and empty per stage). f32: the q
+    and k tiles (32 rows of head_dim + 1), the v tile and the 32 × 33 p
+    tile."""
     if bf16:
-        return 3 * 64 * (head_dim + 8) * 2
+        block_k = 64 if head_dim == 128 else 128
+        return (1024 + 2 * 128 * head_dim * 2
+                + 2 * 3 * block_k * head_dim * 2 + 8 * (4 + 3 * 3))
     return 4 * (2 * 32 * (head_dim + 1) + 32 * head_dim + 32 * 33)
 
 
@@ -109,11 +117,15 @@ def flash_attention(q, k, v, *, causal: bool = True, scale=None,
     """Softmax attention of q (B, H, S, D) over k, v (B, KVH, S, D); returns
     (B, H, S, D) in q's dtype. ``block_q`` / ``block_k`` name the reference
     kernel's tiles and only decide the non-causal contract: the CUDA kernel
-    picks its own tiles."""
+    picks its own tiles. ``scale`` must be > 0: the kernel folds it into
+    its exp2."""
     _check(q, k, v, causal, block_q, block_k)
     b, h, s, d = q.shape
     if scale is None:
         scale = d ** -0.5
+    if not scale > 0:
+        raise ValueError(f"the CUDA kernel folds the scale into its exp2 and "
+                         f"needs scale > 0 (got {scale})")
     out = torch.empty_like(q)
     if q.numel():
         lib = _lib()

@@ -21,10 +21,10 @@ in ``ref.py``. :data:`LAUNCHES` counts kernel launches per wrapper.
 The TPU kernel's VMEM budget becomes a Hopper shared-memory model:
 :func:`catalog_smem_bytes` is what one block of the CUDA kernel holds and
 :func:`check_smem` raises before launch when a geometry does not fit the
-227 KB a block may use. The d axis streams through shared memory in
-32-column chunks and survivors go straight to device memory, so neither d
-nor the capacity enters the model; registers are bounded by construction
-(at most 64 f32 accumulators a thread).
+227 KB a block may use. The d axis streams through a two-stage ring of
+32-column chunks in shared memory and survivors go straight to device
+memory, so neither d nor the capacity enters the model; registers are
+bounded by construction (at most 64 f32 accumulators a thread).
 """
 from __future__ import annotations
 
@@ -64,6 +64,7 @@ GEOMETRY_LATTICE = ((32, 32), (32, 64), (32, 128), (32, 256),
 SMEM_BUDGET_BYTES = 227 * 1024
 
 _CHUNK = 32            # d columns staged per mainloop step
+_STAGES = 2            # shared stages of the staging ring
 _MAX_ACC = 128 * 128   # sub-tile cells: 64 accumulators per thread
 
 # Launches of each CUDA kernel, counted where the wrapper launches it.
@@ -72,12 +73,12 @@ LAUNCHES = {"pair_scores_catalog": 0, "pair_scores_catalog_compact": 0,
 
 
 def dense_smem_bytes(block_m: int, block_n: int) -> int:
-    """Dynamic shared memory of one block of the dense kernel: two
-    transposed (+1 padded) 32-column strip chunks of the sub-tile (its
-    scores go straight to device memory)."""
+    """Dynamic shared memory of one block of the dense kernel: two stages
+    of the sub-tile's transposed 32-column strip chunks (its scores go
+    straight to device memory)."""
     sn = min(block_n, 128)
     sm = min(block_m, _MAX_ACC // sn)
-    return 4 * _CHUNK * ((sm + 1) + (sn + 1))
+    return 4 * _STAGES * _CHUNK * (sm + sn)
 
 
 def catalog_smem_bytes(block_m: int, block_n: int) -> int:

@@ -9,7 +9,8 @@ with TF32 off, the threshold and the optional strict upper triangle),
 the strips, an f32 ``einsum`` with TF32 off, the catalog predicate, and a
 cumsum-plus-scatter pack with a dump slot; the threshold is compared in
 f32, as the kernel and the JAX package do), of ``grouped_matmul_ref`` and
-of ``attention_ref``.
+of ``attention_ref``. :func:`band_rel_err` is how the attention kernel is
+held to ``attention_ref`` beside the absolute tolerance.
 """
 from __future__ import annotations
 
@@ -20,7 +21,14 @@ import torch
 
 __all__ = ["pair_scores_ref", "pair_scores_catalog_ref", "pack_survivor_mask",
            "pair_scores_catalog_compact_ref", "grouped_matmul_ref",
-           "attention_ref", "full_precision"]
+           "attention_ref", "band_rel_err", "ATTENTION_BAND_TOL",
+           "full_precision"]
+
+# The bound on band_rel_err(attention kernel, attention_ref): bf16, two
+# bf16 epsilons (the output's rounding on either side, and p's rounding to
+# bf16 before p·v); f32, 2**-12, far above f32 rounding over S terms and
+# far below the tenths that a kv-tile fault moves a band by.
+ATTENTION_BAND_TOL = {"float32": 2.0 ** -12, "bfloat16": 2.0 ** -6}
 
 
 @contextlib.contextmanager
@@ -137,3 +145,20 @@ def attention_ref(q, k, v, *, causal: bool = True, scale=None):
             logits = torch.where(mask, logits, -1e30)
         p = torch.softmax(logits, dim=-1)
         return torch.einsum("bhqk,bhkd->bhqd", p, v).to(q.dtype)
+
+
+def band_rel_err(got, want, *, band: int = 64) -> float:
+    """max |got - want| / max |want| over each band of ``band`` rows (the
+    last may be short) of the (..., rows, cols) outputs, the largest over
+    all bands. An absolute bound is set by the largest outputs; causal
+    attention over a long S has small late rows, which a lost, repeated or
+    badly rescaled kv tile moves by a share of their own magnitude. This
+    holds every band to its own scale."""
+    err = (got.float() - want.float()).abs().amax(-1)
+    mag = want.float().abs().amax(-1)
+    pad = -err.shape[-1] % band
+    err = torch.nn.functional.pad(err, (0, pad)).unflatten(
+        -1, (-1, band)).amax(-1)
+    mag = torch.nn.functional.pad(mag, (0, pad)).unflatten(
+        -1, (-1, band)).amax(-1)
+    return (err / mag.clamp_min(torch.finfo(torch.float32).tiny)).max().item()

@@ -51,6 +51,11 @@ def test_build_and_smem_model(cuda):
     for bm, bn in pair_sim.GEOMETRY_LATTICE:
         assert lib.pair_sim_smem_bytes(bm, bn) == \
             pair_sim.catalog_smem_bytes(bm, bn)
+    flib = flash_attention._lib()
+    for d in flash_attention.HEAD_DIMS:
+        for bf16 in (True, False):
+            assert flib.flash_attention_smem_bytes(d, int(bf16)) == \
+                flash_attention.smem_bytes(d, bf16)
 
 
 @pytest.mark.parametrize("bm,bn", pair_sim.GEOMETRY_LATTICE)
@@ -77,6 +82,57 @@ def test_kernels_equal_plain_on_dyadic_inputs(cuda, bm, bn, dtype, d):
         want = ref.pair_scores_catalog_ref(a, b, cat, threshold=0.5,
                                            block_m=bm, block_n=bn)
         assert torch.equal(got, want)
+    torch.cuda.synchronize()
+
+
+def _mid_tile_catalog(n_a, n_b, bm, bn, seed):
+    """Entries whose validity windows start and end inside their tiles,
+    with random triangles, corner cuts and SN bands (some entries without
+    any), plus zero pad rows."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(48):
+        at = int(rng.integers(0, -(-n_a // bm)))
+        bt = int(rng.integers(0, -(-n_b // bn)))
+        r0 = at * bm + int(rng.integers(0, bm))
+        c0 = bt * bn + int(rng.integers(0, bn))
+        r1 = min(r0 + int(rng.integers(1, bm)), (at + 1) * bm)
+        c1 = min(c0 + int(rng.integers(1, bn)), (bt + 1) * bn)
+        cuts = rng.random() < 0.5
+        lb = (r0 + int(rng.integers(0, bm // 2)), c0 + int(
+            rng.integers(0, bn // 2))) if cuts else (-1, -1)
+        ub = (r1 - int(rng.integers(0, bm // 2)), c1 - int(
+            rng.integers(0, bn // 2))) if cuts else (2 ** 30, 2 ** 30)
+        band = int(rng.integers(1, 2 * bn)) if rng.random() < 0.3 else 0
+        rows.append([at, bt, r0, r1, c0, c1, int(rng.random() < 0.3),
+                     *lb, *ub, band, 0])
+    rows += [[0] * pair_sim.NCOLS] * 3
+    return np.asarray(rows, np.int32)
+
+
+@pytest.mark.parametrize("bm,bn", [(32, 256), (256, 32)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [40, 300])
+def test_compact_kernel_ragged_d_mid_tile_windows(cuda, bm, bn, dtype, d):
+    """d not a multiple of the 32-column chunk, feature matrices whose row
+    counts are not multiples of the tile, and windows that start mid-tile:
+    bit for bit against the plain version at three capacities."""
+    dt = getattr(torch, dtype)
+    a = torch.from_numpy(_dyadic(700, d, 2)).to(cuda, dt)
+    b = torch.from_numpy(_dyadic(333, d, 3)).to(cuda, dt)
+    for x, y in ((a, a), (a, b)):
+        cat = torch.from_numpy(_mid_tile_catalog(
+            x.shape[0], y.shape[0], bm, bn, d)).to(cuda)
+        for cap in (bm * bn, 64, 3):
+            got = ops.pair_scores_catalog_compact(
+                x, y, cat, threshold=0.25, block_m=bm, block_n=bn,
+                capacity=cap, impl="cuda")
+            want = ref.pair_scores_catalog_compact_ref(
+                x, y, cat, threshold=0.25, block_m=bm, block_n=bn,
+                capacity=cap)
+            assert torch.equal(got[1], want[1])
+            assert torch.equal(got[0], want[0])
+        assert int(want[1].sum()) > 0
     torch.cuda.synchronize()
 
 
@@ -130,7 +186,11 @@ def _normal(shape, seed, dtype, device, scale=1.0):
     (2, 16, 8, 1000, 64, True),      # ragged S
     (1, 8, 2, 300, 16, True), (2, 4, 4, 257, 32, True),
     (1, 4, 1, 512, 128, True),       # G = 4
-    (1, 4, 2, 256, 64, False), (1, 2, 2, 1024, 128, False)])
+    (1, 4, 2, 256, 64, False), (1, 2, 2, 1024, 128, False),
+    # edges of the 128-row q and kv tiles: S below one tile, one past a
+    # tile, a single row; D = 128 (two TMA boxes a row) with G = 4
+    (1, 4, 2, 40, 32, True), (2, 4, 2, 129, 64, True),
+    (2, 4, 2, 1, 64, True), (1, 8, 2, 2048, 128, True)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_kernel_equals_plain(cuda, b, h, kvh, s, d, causal, dtype):
     q = _normal((b, h, s, d), 1, dtype, cuda)
@@ -142,6 +202,9 @@ def test_flash_kernel_equals_plain(cuda, b, h, kvh, s, d, causal, dtype):
     assert got.dtype == q.dtype and got.shape == q.shape
     err = (got.float() - want.float()).abs().max().item()
     assert err <= FLASH_TOL[dtype], err
+    # and each 64-row band to its own scale (late causal rows are small)
+    band = ref.band_rel_err(got, want)
+    assert band <= ref.ATTENTION_BAND_TOL[dtype], band
 
 
 def _skewed_layout(t_tokens, e, bt, seed, device):
@@ -180,6 +243,9 @@ def test_lm_wrappers_raise_before_launch(cuda):
     q = torch.zeros((1, 4, 200, 64), device=cuda)
     with pytest.raises(ValueError):       # non-causal ragged S
         flash_attention.flash_attention(q, q, q, causal=False)
+    with pytest.raises(ValueError):       # the kernel folds scale > 0
+        flash_attention.flash_attention(q.bfloat16(), q.bfloat16(),
+                                        q.bfloat16(), scale=0.0)
     x = torch.zeros((64, 16), device=cuda)
     w = torch.zeros((2, 16, 8), device=cuda)
     te = torch.zeros((4,), dtype=torch.int32, device=cuda)

@@ -159,8 +159,9 @@ def test_shared_memory_model():
         need = pair_sim.catalog_smem_bytes(bm, bn)
         assert 0 < need <= pair_sim.SMEM_BUDGET_BYTES
         pair_sim.check_smem(bm, bn)
-    # 128x128: two 32 x 129 f32 chunks + 512 words of keep bits
-    assert pair_sim.catalog_smem_bytes(128, 128) == 4 * (32 * 258 + 512)
+    # 128x128: two stages of (A, B) 32 x 128 f32 chunks + 512 words of
+    # keep bits
+    assert pair_sim.catalog_smem_bytes(128, 128) == 4 * (2 * 32 * 256 + 512)
     for bad in ((16, 16), (512, 32), (96, 128)):
         with pytest.raises(ValueError):
             pair_sim.check_smem(*bad)

@@ -20,7 +20,7 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.grouped_mm import pad_groups as jpad_groups  # noqa: E402
 from repro.models import layers as jlayers  # noqa: E402
-from repro_torch.kernels import flash_attention, grouped_mm, ops  # noqa: E402
+from repro_torch.kernels import flash_attention, grouped_mm, ops, ref  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
 
 FLASH_TOL = {"float32": 5e-4, "bfloat16": 3e-2}
@@ -104,6 +104,67 @@ def test_grouped_plain_matches_pallas_and_ref(t, d, e, f, bt, dtype):
     _close(got, pallas, GROUPED_TOL[dtype])
     _close(got, jref.grouped_matmul_ref(xj, jnp.asarray(te), wj, block_t=bt),
            GROUPED_TOL[dtype])
+
+
+def _late_rows_with_tile_fault(q, k, v, fault, tile, bk=128):
+    """attention_ref's last 128 causal rows when the kernel's kv tile
+    ``tile`` is lost (never read) or repeated (tile 0 read in its place):
+    what a fault in the K/V ring would give."""
+    s = q.shape[-2]
+    k, v = k.clone(), v.clone()
+    if fault == "repeated":
+        k[:, :, tile * bk:(tile + 1) * bk] = k[:, :, :bk]
+        v[:, :, tile * bk:(tile + 1) * bk] = v[:, :, :bk]
+    logits = q[:, :, -128:].float() @ k.float().transpose(-1, -2) \
+        * q.shape[-1] ** -0.5
+    dead = torch.arange(s) > torch.arange(s - 128, s)[:, None]
+    if fault == "lost":
+        dead[:, tile * bk:(tile + 1) * bk] = True
+    p = torch.softmax(logits.masked_fill(dead, -1e30), -1)
+    return (p @ v.float()).to(q.dtype)
+
+
+@pytest.mark.parametrize("fault", ["lost", "repeated"])
+@pytest.mark.parametrize("tile", [1, 14])
+def test_band_rel_err_passes_rounding_and_flags_a_kv_tile_fault(fault,
+                                                                tile):
+    """The band check of the flash kernel (``ref.band_rel_err`` within
+    ``ATTENTION_BAND_TOL``) at granite's S 2,048, D 64, bf16: the kernel's
+    own roundings (p to bf16 before p·v, the output to bf16) stay inside
+    it, and one lost or repeated 128-row kv tile of the last q tile does
+    not."""
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, 2048, 64))
+                                .astype(np.float32)).bfloat16()
+               for _ in range(3))
+    want = ref.attention_ref(q, k, v)
+    # the kernel's rounding: unnormalised p in bf16, l in f32
+    logits = q.float() @ k.float().transpose(-1, -2) * 64 ** -0.5
+    logits = logits.masked_fill(
+        torch.ones(2048, 2048, dtype=torch.bool).triu(1), -1e30)
+    e = torch.exp(logits - logits.amax(-1, keepdim=True))
+    rounded = ((e.bfloat16().float() @ v.float()) / e.sum(-1, keepdim=True)
+               ).bfloat16()
+    assert ref.band_rel_err(rounded, want) <= \
+        ref.ATTENTION_BAND_TOL["bfloat16"]
+    faulty = want.clone()
+    faulty[:, :, -128:] = _late_rows_with_tile_fault(q, k, v, fault, tile)
+    assert ref.band_rel_err(faulty, want) > \
+        4 * ref.ATTENTION_BAND_TOL["bfloat16"]
+
+
+@pytest.mark.parametrize("d", flash_attention.HEAD_DIMS)
+def test_flash_smem_model_fits_every_head_dim(d):
+    """One block of either flash kernel fits the 227 KB a block may use at
+    every head dim it is built for; bf16 holds two 128-row q tiles, a
+    3-stage ring of K and V tiles (128 rows, 64 at D = 128) and its 13
+    mbarriers past 1 KB of alignment."""
+    from repro_torch.kernels.pair_sim import SMEM_BUDGET_BYTES
+    for bf16 in (True, False):
+        assert 0 < flash_attention.smem_bytes(d, bf16) <= SMEM_BUDGET_BYTES
+    block_k = 64 if d == 128 else 128
+    assert flash_attention.smem_bytes(d, True) == (
+        1024 + 2 * d * (2 * 128 + 6 * block_k) + 8 * 13)
 
 
 def test_grouped_contract_and_pad_groups():
