@@ -6,8 +6,9 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
   1. device  — the card's name, the device count, its power limit;
-  2. build   — the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, one
-               process per source, all at once), with the build seconds and
+  2. build   — the CUDA kernels from ``src/repro_torch/csrc`` and the
+               grouped kernel's earlier design from ``yardsticks/`` (nvcc,
+               one process per source, all at once), with the build seconds and
                what ``-Xptxas -v`` reports per kernel (registers and spills
                of the redesigned ones again on a line of their own), and
                the shared-memory models held against the kernels' own;
@@ -57,9 +58,11 @@ LM serving, granite-moe-1b-a400m (``repro_torch.serve.generate``):
 
   LM-a kernels — the flash-attention and grouped-matmul kernels against
                their plain versions at the main path's shapes (granite
-               prefill and decode, a ragged S, head dims 16/32/64/128, G = 4,
-               non-causal; grouped at block_t 128 and 8 with real routing),
-               bf16 and f32, within the JAX package's own tolerances;
+               prefill and decode, phi-3-vision's prefill, a ragged S, head
+               dims 16/32/64/80/96/128, G = 4, non-causal, scales -0.125 and
+               0; grouped at block_t 128 and 8 with real routing), bf16 and
+               f32, within the JAX package's own tolerances and per row band
+               to each band's own scale;
   LM-b wiring — granite at full width, 2 layers, f32: prefill + 4 greedy
                decode steps on the kernel route against the plain versions
                (logits atol 2e-3 / rtol 1e-2, equal tokens), and
@@ -69,19 +72,34 @@ LM serving, granite-moe-1b-a400m (``repro_torch.serve.generate``):
                and 2 of 1,000 (8 new), with the launches of both kernels,
                prefill seconds, decode ms per step, tokens/s and peak
                memory, and the kernel-vs-plain prefill logits at full depth;
-  LM-d timing — CUDA-event times of the flash call of one prefill layer and
-               of the grouped call at block_t 128 (prefill) and 8 (decode),
-               beside the plain versions, a library yardstick and the
+  LM-e vlm    — phi-3-vision-4.2b (head dim 96) on the flash kernel route:
+               full width, 2 layers, f32, against the plain versions; then
+               full width and depth, bf16, random weights from seed 0,
+               ``generate`` on 2 prompts of 576 patch embeddings + 1,024
+               tokens (8 new), with launches, prefill seconds, decode ms,
+               tokens/s, peak memory, the prefill's device breakdown and the
+               kernel-vs-plain prefill logits; two greedy runs must agree;
+  LM-d timing — CUDA-event times of the flash call of one prefill layer
+               (granite's and phi-3-vision's shapes) and of the grouped call
+               at block_t 128 (prefill) and 8 (decode), beside the plain
+               versions, a library yardstick (SDPA; ``torch._grouped_mm``,
+               and the per-expert ``matmul`` calls as a second one) and the
                card's bound, with each kernel's share of the bound and its
-               ratio to the yardstick.
+               ratio to the yardstick; the grouped calls also in turns with
+               the kernel's earlier design (``yardsticks/``, built in phase
+               2): back-to-back and device times (``torch.profiler``) and
+               the host microseconds of one call.
 
-Phases run in the order 1-6, D, ER-t, ER-f, ER-s, LM-a…d, then 7, the
+Phases run in the order 1-6, D, ER-t, ER-f, ER-s, LM-a, LM-b, LM-c, LM-e,
+LM-d, then 7, the
 summary. The last two lines of standard output are the kernel
 summary and ``{"ok": true, "device": {...}}``. Without a card, or without the repo
 beside it, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
+import ctypes
 import json
 import re
 import subprocess
@@ -133,7 +151,7 @@ def device_phase(torch):
 def _kernel_label(fn):
     """A readable name for a mangled kernel instance and the dynamic shared
     memory its launch asks for."""
-    from repro_torch.kernels import flash_attention, pair_sim
+    from repro_torch.kernels import flash_attention, grouped_mm, pair_sim
 
     m = re.search(r"catalog_kernelI(\w+?)Li(\d+)ELi(\d+)ELb(\d)", fn)
     if m:
@@ -151,17 +169,44 @@ def _kernel_label(fn):
         bm, bn = int(m.group(2)), int(m.group(3))
         return (f"dense {'bf16' if 'bfloat16' in m.group(1) else 'f32'} "
                 f"{bm}x{bn}", pair_sim.dense_smem_bytes(bm, bn))
-    m = re.search(r"grouped_mm_(bf16|f32)ILi(\d+)E", fn)
+    if "grouped_mm_tma" in fn:
+        return "grouped tma bf16 block_t=128", grouped_mm.smem_bytes("tma")
+    m = re.search(r"grouped_mm_decodeILi8EN\w*?DecodeCfgILi2ELi(\d)E", fn)
     if m:
-        return f"grouped {m.group(1)} block_t={m.group(2)}", 0
+        kernel = "decode" if m.group(1) == "2" else "decode_wide"
+        return (f"grouped {kernel} bf16 block_t=8",
+                grouped_mm.smem_bytes(kernel))
+    m = re.search(r"grouped_mm_unalignedILi(\d+)E", fn)
+    if m:
+        return f"grouped unaligned bf16 block_t={m.group(1)}", 0
+    m = re.search(r"grouped_mm_f32ILi(\d+)E", fn)
+    if m:
+        return f"grouped f32 block_t={m.group(1)}", 0
     return fn, 0
 
 
+YARDSTICK_GROUPED = ROOT / "yardsticks" / "grouped_mm_mma_sync.cu"
+
+
 def build_phase():
-    from repro_torch.kernels import build, flash_attention, pair_sim
+    """Builds every kernel of the port, and beside them the grouped
+    kernel's earlier design (``yardsticks/``, LM-d's host and device
+    yardstick) into ``build/yardstick``; returns (seconds, that library's
+    path)."""
+    from repro_torch.kernels import build, flash_attention, grouped_mm, pair_sim
     phase("2 build")
     t0 = time.perf_counter()
+    ydir = build.BUILD_DIR / "yardstick"
+    ydir.mkdir(parents=True, exist_ok=True)
+    ylib = ydir / "libgrouped_mm_mma_sync.so"
+    yproc = subprocess.Popen(
+        [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(ylib),
+         str(YARDSTICK_GROUPED)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
     build.build_all()
+    ylog, _ = yproc.communicate()
+    if yproc.returncode != 0:
+        raise AssertionError(f"nvcc failed on {YARDSTICK_GROUPED}:\n{ylog}")
     seconds = time.perf_counter() - t0
     log(f"nvcc {' '.join(build.NVCC_FLAGS)}")
     for name, entry in build.BUILD_LOG.items():
@@ -183,7 +228,8 @@ def build_phase():
             log(f"  {name}: {label:<22} regs {regs:>3}  spill st/ld "
                 f"{st}/{ld} B  stack {stack} B  static smem {smem or 0} B  "
                 f"dynamic smem {dyn} B")
-            if label.startswith("flash bf16") or "128x128" in label:
+            if label.startswith(("flash bf16", "grouped tma",
+                                 "grouped decode")) or "128x128" in label:
                 redesigned.append(f"{label}: {regs} regs, spill {st}/{ld} B")
         if redesigned:
             log(f"  {name}, the kernels this slice redesigned: "
@@ -202,9 +248,17 @@ def build_phase():
                 raise AssertionError(f"flash shared-memory model disagrees "
                                      f"with the kernel at D={d}, bf16="
                                      f"{bf16}: {got}")
+    glib = grouped_mm._lib()
+    for i, kernel in enumerate(grouped_mm.KERNELS):
+        got = glib.grouped_mm_smem_bytes(i)
+        if got != grouped_mm.smem_bytes(kernel):
+            raise AssertionError(f"grouped shared-memory model disagrees "
+                                 f"with the {kernel} kernel: {got}")
     log("shared-memory models agree with the kernels (the catalog lattice, "
-        "flash at every head dim)")
-    return seconds
+        "flash at every head dim, every TMA-fed grouped kernel)")
+    log(f"yardstick: the grouped kernel's earlier design built from "
+        f"{YARDSTICK_GROUPED.relative_to(ROOT)} into {ylib}")
+    return seconds, ylib
 
 
 # ---------------------------------------------------------------------------
@@ -992,21 +1046,29 @@ FLASH_TOL = {"float32": 5e-4, "bfloat16": 3e-2}    # tests/test_kernels.py
 GROUPED_TOL = {"float32": 1e-4, "bfloat16": 5e-2}  # (the JAX package's own)
 LM_B_TOL = dict(atol=2e-3, rtol=1e-2)              # tests/test_arch_smoke.py
 LM_C_RUNS = ((8, 2048, 32), (2, 1000, 8))          # (prompts, length, new)
-LM_A_FLASH = (  # (B, H, KVH, S, D, causal), each in bf16 and f32
-    (8, 16, 8, 2048, 64, True),      # granite prefill (LM-c's first run)
-    (2, 16, 8, 1000, 64, True),      # ragged S (LM-c's second run)
-    (2, 16, 4, 512, 16, True), (2, 8, 8, 384, 32, True),
-    (1, 16, 4, 1024, 128, True),     # G = 4
-    (2, 16, 8, 1024, 64, False))
+PHI3 = "phi-3-vision-4.2b"
+LM_E_RUN = (2, 1024, 8)   # prompts, tokens after the 576 patches, new
+LM_A_FLASH = (  # (B, H, KVH, S, D, causal, scale), each in bf16 and f32
+    (8, 16, 8, 2048, 64, True, None),    # granite prefill (LM-c's first run)
+    (2, 16, 8, 1000, 64, True, None),    # ragged S (LM-c's second run)
+    (2, 16, 4, 512, 16, True, None), (2, 8, 8, 384, 32, True, None),
+    (1, 16, 4, 1024, 128, True, None),   # G = 4
+    (2, 16, 8, 1024, 64, False, None),
+    (2, 32, 32, 1600, 96, True, None),   # phi-3-vision prefill (LM-e)
+    (1, 8, 4, 333, 80, True, None),      # zamba2's head dim, ragged S
+    (1, 8, 4, 1024, 96, False, None),
+    (2, 16, 8, 1000, 64, True, -0.125),  # scale < 0 and scale 0
+    (1, 8, 8, 512, 96, True, 0.0), (1, 8, 4, 1024, 80, False, -0.125))
 
 
-def granite(torch, **over):
-    """granite-moe-1b-a400m at full width, random weights from seed 0 on
-    the card; ``over`` replaces config fields (depth, dtype, routes)."""
+def granite(torch, arch=GRANITE, **over):
+    """``arch`` (granite-moe-1b-a400m by default) at full width, random
+    weights from seed 0 on the card; ``over`` replaces config fields
+    (depth, dtype, routes)."""
     from repro_torch.configs import get_config
     from repro_torch.models import get_model
 
-    cfg = get_config(GRANITE).replace(**over)
+    cfg = get_config(arch).replace(**over)
     gen = torch.Generator("cuda").manual_seed(0)
     return cfg, get_model(cfg).init(cfg, gen, device="cuda")
 
@@ -1034,25 +1096,30 @@ def lm_kernels_phase(torch, np):
     flash's largest band error, ``ref.band_rel_err``)."""
     from repro_torch.kernels import ops, ref
 
-    phase("LM-a LM kernels vs plain versions (granite prefill/decode shapes)")
+    phase("LM-a LM kernels vs plain versions (granite and phi-3-vision "
+          "shapes, head dims 16-128, scales <= 0)")
     rng = np.random.default_rng(0)
-    errs = {"flash_attention": 0.0, "flash_band": 0.0, "grouped_matmul": 0.0}
+    errs = {"flash_attention": 0.0, "flash_band": 0.0, "grouped_matmul": 0.0,
+            "grouped_band": 0.0}
     cases = {"flash_attention": 0, "grouped_matmul": 0}
 
     def normal(shape, dtype, scale=1.0):
         x = rng.standard_normal(shape).astype(np.float32) * scale
         return torch.from_numpy(x).cuda().to(dtype)
 
-    for b, h, kvh, s, d, causal in LM_A_FLASH:
+    for b, h, kvh, s, d, causal, scale in LM_A_FLASH:
         for name in ("bfloat16", "float32"):
             dt = getattr(torch, name)
             q, k, v = (normal((b, n, s, d), dt) for n in (h, kvh, kvh))
-            got = ops.attention(q, k, v, causal=causal, impl="cuda")
-            want = ops.attention(q, k, v, causal=causal, impl="torch")
+            got = ops.attention(q, k, v, causal=causal, scale=scale,
+                                impl="cuda")
+            want = ops.attention(q, k, v, causal=causal, scale=scale,
+                                 impl="torch")
             err = (got.float() - want.float()).abs().max().item()
             band = ref.band_rel_err(got, want)
             log(f"flash {name:<8} B={b} H={h} KVH={kvh} S={s} D={d} "
-                f"causal={causal}: max_abs_err {err:.3e} (tolerance "
+                f"causal={causal} scale={scale}: max_abs_err {err:.3e} "
+                f"(tolerance "
                 f"{FLASH_TOL[name]}), max err / max |plain| over 64-row "
                 f"bands {band:.3e} (tolerance "
                 f"{ref.ATTENTION_BAND_TOL[name]:.3e})")
@@ -1081,13 +1148,19 @@ def lm_kernels_phase(torch, np):
                 want = ops.grouped_matmul(x, te, w, block_t=bt,
                                           impl="torch")
                 err = (got.float() - want.float()).abs().max().item()
+                band = ref.band_rel_err(got, want, band=bt)
                 log(f"grouped {name:<8} block_t={bt} rows {x.shape[0]} "
                     f"(real {real}) d={x.shape[1]} {wname} F={w.shape[2]}: "
-                    f"max_abs_err {err:.3e} (tolerance {GROUPED_TOL[name]})")
-                if not err <= GROUPED_TOL[name]:
+                    f"max_abs_err {err:.3e} (tolerance {GROUPED_TOL[name]})"
+                    f", max err / max |plain| over {bt}-row bands "
+                    f"{band:.3e} (tolerance "
+                    f"{ref.GROUPED_BAND_TOL[name]:.3e})")
+                if not (err <= GROUPED_TOL[name]
+                        and band <= ref.GROUPED_BAND_TOL[name]):
                     raise AssertionError("grouped kernel disagrees with its "
                                          "plain version")
                 errs["grouped_matmul"] = max(errs["grouped_matmul"], err)
+                errs["grouped_band"] = max(errs["grouped_band"], band)
                 cases["grouped_matmul"] += 1
     torch.cuda.synchronize()
     del model
@@ -1313,25 +1386,192 @@ def lm_slice_phase(torch, np):
     return cfg, model, launches, rows
 
 
-def lm_timing_phase(torch, np, cfg, model):
-    """LM-d: CUDA-event times at the LM-c shapes: one layer's flash call on
-    a B=8 x 2048 prefill, the grouped call at block_t 128 (that prefill)
+def _phi3_batch(torch, np, cfg, b, s, seed):
+    rng = np.random.default_rng(seed)
+    return {"tokens": torch.from_numpy(
+                rng.integers(0, cfg.vocab, (b, s))).cuda(),
+            "patches": torch.from_numpy(rng.standard_normal(
+                (b, cfg.n_patches, cfg.d_model)).astype(np.float32)).cuda()}
+
+
+def lm_vlm_phase(torch, np):
+    """LM-e: phi-3-vision-4.2b (head dim 96) on the flash kernel route.
+    First at full width, 2 layers, f32: the kernel route against the plain
+    versions (logits within LM-b's tolerance, equal tokens). Then at full
+    width and depth, bf16, random weights from seed 0, through
+    ``generate``: 2 prompts of 576 patch embeddings + 1,024 tokens (S =
+    1,600, ragged against the 128-row tiles), 8 new tokens, with the
+    launches, prefill s, decode ms, tokens/s, peak memory, the prefill's
+    device breakdown, and the kernel-vs-plain prefill logits. Returns the
+    launches of the full-depth run and its numbers."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import get_model
+    from repro_torch.serve import generate, make_prefill
+
+    phase("LM-e phi-3-vision-4.2b on the kernel route (head dim 96)")
+    kern, model = granite(torch, PHI3, n_layers=2, param_dtype="float32",
+                          compute_dtype="float32", attn_impl="kernel")
+    plain = kern.replace(attn_impl="plain", kernel_impl="torch")
+    batch = _phi3_batch(torch, np, kern, 2, 200, 3)
+    cache = get_model(kern).init_cache(kern, 2, kern.n_patches + 201)
+    ops.reset_launch_counts()
+    lk, _ = make_prefill(kern)(model, batch, cache)
+    counts = ops.launch_counts()
+    cache = get_model(plain).init_cache(plain, 2, plain.n_patches + 201)
+    lp, _ = make_prefill(plain)(model, batch, cache)
+    diff = (lk.float() - lp.float()).abs().max().item()
+    tk = generate(model, kern, batch, 4)
+    tpl = generate(model, plain, batch, 4)
+    if counts["flash_attention"] != kern.n_layers or not torch.allclose(
+            lk.float(), lp.float(), **LM_B_TOL) or not torch.equal(tk, tpl):
+        raise AssertionError(f"LM-e 2 layers f32: launches {counts}, logits "
+                             f"differ by {diff}, tokens {tk.tolist()} vs "
+                             f"{tpl.tolist()}")
+    log(f"full width, 2 layers, f32, S = {kern.n_patches} + 200: kernel vs "
+        f"plain prefill logits max |diff| {diff:.3e} within atol "
+        f"{LM_B_TOL['atol']} / rtol {LM_B_TOL['rtol']}; 4 greedy tokens "
+        f"equal {tk.tolist()}; flash launches {counts['flash_attention']}")
+    del model
+
+    cfg, model = granite(torch, PHI3, attn_impl="kernel")
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads "
+        f"/ {cfg.n_kv_heads} KV, head dim {cfg.hd}, {cfg.n_patches} patches, "
+        f"vocab {cfg.vocab}: {n_params:,} parameters "
+        f"({n_params * 2 / 1e9:.2f} GB bf16)")
+    b, s, new = LM_E_RUN
+    batch = _phi3_batch(torch, np, cfg, b, s, 4)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = generate(model, cfg, batch, new)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if out.shape != (b, new) or not bool(
+            ((out >= 0) & (out < cfg.vocab)).all()):
+        raise AssertionError(f"generate returned {tuple(out.shape)} or ids "
+                             "outside the vocabulary")
+    if launches["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"the phi-3-vision prefill missed the flash "
+                             f"kernel: {launches}")
+    total = cfg.n_patches + s
+    cache = get_model(cfg).init_cache(cfg, b, total + new)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _ = make_prefill(cfg)(model, batch, cache)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("non-finite prefill logits")
+    t0 = time.perf_counter()
+    again = generate(model, cfg, batch, new)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    if not torch.equal(out, again):
+        raise AssertionError("two greedy runs gave different tokens")
+    decode_ms = (gen_s - prefill_s) / max(new - 1, 1) * 1e3
+    log(f"B={b} x ({cfg.n_patches} patches + {s} tokens) = S {total}, {new} "
+        f"new: launches {launches}; first generate {first_s:.3f} s (cold); "
+        f"prefill {prefill_s:.3f} s; generate {gen_s:.3f} s -> decode "
+        f"{decode_ms:.2f} ms/token-step ({b * new / gen_s:.1f} tokens/s, "
+        f"{b * total / prefill_s:,.0f} prompt positions/s in prefill); peak "
+        f"memory {peak / 2**30:.2f} GiB; tokens[0] {out[0].tolist()}; "
+        "repeat run equal")
+    cache = get_model(cfg).init_cache(cfg, b, total + 1)
+    wall, cats = device_breakdown(
+        torch, lambda: make_prefill(cfg)(model, batch, cache))
+    _log_breakdown(f"prefill B={b} S={total}", wall, cats)
+    plain = cfg.replace(attn_impl="plain", kernel_impl="torch")
+    cache = get_model(plain).init_cache(plain, b, total + 1)
+    ref_logits, _ = make_prefill(plain)(model, batch, cache)
+    diff = (logits.float() - ref_logits.float()).abs().max().item()
+    agree = (logits.float().argmax(-1) == ref_logits.float().argmax(-1)
+             ).float().mean().item()
+    log(f"full depth, bf16: kernel vs plain-version prefill logits max "
+        f"|diff| {diff:.3e} (informative; logit scale "
+        f"{ref_logits.float().abs().max().item():.2f}); next-token argmax "
+        f"agrees on {agree:.0%} of the prompts")
+    del model
+    return launches, dict(b=b, s=total, new=new, prefill_s=prefill_s,
+                          generate_s=gen_s, decode_ms=decode_ms,
+                          tokens_per_s=b * new / gen_s, peak_bytes=peak,
+                          plain_logit_diff=diff)
+
+
+def _host_us(torch, fn, reps=200):
+    """Host microseconds of one call of ``fn``: ``reps`` calls enqueued
+    back to back on the host clock (no synchronize inside), after warm-up."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def _device_ms(torch, fn, name, reps=20):
+    """Mean device time of one launch of the kernels whose name holds
+    ``name`` over ``reps`` calls of ``fn`` (``torch.profiler``), None if
+    the profiler saw none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = count = 0
+    for ev in prof.key_averages():
+        if name in ev.key:
+            t = getattr(ev, "device_time_total", None)
+            total += ev.cuda_time_total if t is None else t
+            count += ev.count
+    return total / count * 1e-3 if count else None
+
+
+@contextlib.contextmanager
+def earlier_grouped_kernel(path):
+    """Runs ``grouped_mm.grouped_matmul`` (the same Python wrapper, checks
+    and counters) on the grouped kernel's earlier design, the library built
+    from ``yardsticks/``, for the duration of the block."""
+    from repro_torch.kernels import grouped_mm
+
+    lib = ctypes.CDLL(str(path))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.grouped_mm_launch.argtypes = [i, i, p, p, p, p] + [i] * 5 + [p]
+    lib.grouped_mm_launch.restype = i
+    lib.grouped_mm_error_string.argtypes = [i]
+    lib.grouped_mm_error_string.restype = ctypes.c_char_p
+    saved = grouped_mm._lib
+    grouped_mm._lib = lambda: lib
+    try:
+        yield
+    finally:
+        grouped_mm._lib = saved
+
+
+def lm_timing_phase(torch, np, cfg, model, yardstick_lib):
+    """LM-d: CUDA-event times at the LM-c and LM-e shapes: one layer's flash
+    call on a granite B=8 x 2048 prefill and on a phi-3-vision B=2 x 1600
+    prefill (head dim 96), the grouped call at block_t 128 (that prefill)
     and at 8 (a B=8 decode step), each beside its plain version, a library
-    yardstick and the card's bound."""
+    yardstick and the card's bound; the grouped calls also beside the
+    kernel's earlier design (built from ``yardsticks/``) in turns, with
+    the device time (``torch.profiler``) and the host microseconds of one
+    call of both."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops
 
-    phase("LM-d timing at the LM-c shapes (CUDA events)")
+    phase("LM-d timing at the LM-c and LM-e shapes (CUDA events)")
     rng = np.random.default_rng(2)
-    b, s = LM_C_RUNS[0][:2]
-    h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q, k, v = (torch.from_numpy(rng.standard_normal((b, n, s, d)).astype(
-        np.float32)).cuda().to(torch.bfloat16) for n in (h, kvh, kvh))
-    kr = k.repeat_interleave(h // kvh, dim=1)
-    vr = v.repeat_interleave(h // kvh, dim=1)
-    pairs = b * h * s * (s + 1) // 2                # causal (q, k) pairs
-    flops = 4.0 * d * pairs
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
     rows = {}
 
     def row(name, kern, plain, library, lib_label, flops, nbytes, reps,
@@ -1356,48 +1596,102 @@ def lm_timing_phase(torch, np, cfg, model):
         return dict(ms=ms, plain_ms=(p1 + p2) / 2, bound_ms=bound,
                     bound_by=by, library_ms=lib_ms, library=lib_label)
 
-    rows["flash_attention"] = row(
-        "flash_attention",
-        lambda: ops.attention(q, k, v, impl="cuda"),
-        lambda: ops.attention(q, k, v, impl="torch"),
-        lambda: F.scaled_dot_product_attention(q, kr, vr, is_causal=True),
-        f"torch SDPA, is_causal, on K/V repeated to {h} heads beforehand",
-        flops, nbytes, 20, f"B={b} H={h} KVH={kvh} S={s} D={d} bf16 causal, "
-        "one layer of the prefill")
+    for key, (b, h, kvh, s, d), note in (
+            ("flash_attention", (LM_C_RUNS[0][0], cfg.n_heads,
+                                 cfg.n_kv_heads, LM_C_RUNS[0][1], cfg.hd),
+             "one layer of granite's prefill"),
+            ("flash_attention[phi-3-vision]", (2, 32, 32, 1600, 96),
+             "one layer of phi-3-vision's prefill (LM-e)")):
+        q, k, v = (torch.from_numpy(rng.standard_normal(
+            (b, n, s, d)).astype(np.float32)).cuda().to(torch.bfloat16)
+            for n in (h, kvh, kvh))
+        kr = k.repeat_interleave(h // kvh, dim=1)
+        vr = v.repeat_interleave(h // kvh, dim=1)
+        pairs = b * h * s * (s + 1) // 2                # causal (q, k) pairs
+        rows[key] = row(
+            key,
+            lambda q=q, k=k, v=v: ops.attention(q, k, v, impl="cuda"),
+            lambda q=q, k=k, v=v: ops.attention(q, k, v, impl="torch"),
+            lambda q=q, kr=kr, vr=vr: F.scaled_dot_product_attention(
+                q, kr, vr, is_causal=True),
+            f"torch SDPA, is_causal, on K/V repeated to {h} heads "
+            "beforehand" if h != kvh else "torch SDPA, is_causal",
+            4.0 * d * pairs, 2 * (2 * q.numel() + k.numel() + v.numel()),
+            20, f"B={b} H={h} KVH={kvh} S={s} D={d} bf16 causal, {note}")
+        del q, k, v, kr, vr
 
     ex = model.layers[0].experts
-    for bt_want, (bb, ss), reps in ((128, (b, s), 20), (8, (b, 1), 200)):
+    for bt_want, (bb, ss), reps in ((128, LM_C_RUNS[0][:2], 20),
+                                    (8, (LM_C_RUNS[0][0], 1), 200)):
         toks = torch.from_numpy(rng.integers(0, cfg.vocab, (bb, ss))).cuda()
         xg, te, bt, real, ids = routed_layout(torch, model, cfg, toks)
         if bt != bt_want:
             raise AssertionError(f"block_t {bt} where {bt_want} was meant")
         w = ex.w_gate
+        e = w.shape[0]
         used = int(torch.unique(ids).numel())
         flops = 2.0 * real * w.shape[1] * w.shape[2]
         nbytes = 2 * (real * w.shape[1] + real * w.shape[2]
                       + used * w.shape[1] * w.shape[2])
-        # the yardstick: one torch.matmul per expert segment (host bounds
-        # read once, outside the timing)
+        # torch._grouped_mm's offs: expert k's rows end where its last tile
+        # ends (the tail tiles belong to expert E - 1); host bounds read
+        # once, outside the timing, as for the per-expert yardstick
         tes = te.cpu().numpy()
-        segs = [(int(e), i * bt, (i + n) * bt) for e, i, n in zip(
+        offs = torch.from_numpy((np.searchsorted(
+            tes, np.arange(e), side="right") * bt).astype(np.int32)).cuda()
+        segs = [(int(x), i * bt, (i + n) * bt) for x, i, n in zip(
             *np.unique(tes, return_index=True),
             np.unique(tes, return_counts=True)[1])]
 
-        def library(xg=xg, segs=segs, w=w):
-            return [torch.matmul(xg[a:z], w[e]) for e, a, z in segs]
+        def kern(xg=xg, te=te, bt=bt):
+            return ops.grouped_matmul(xg, te, w, block_t=bt, impl="cuda")
 
+        def library(xg=xg, offs=offs):
+            return torch._grouped_mm(xg, w, offs=offs)
+
+        def per_expert(xg=xg, segs=segs):
+            return [torch.matmul(xg[a:z], w[x]) for x, a, z in segs]
+
+        lib_err = (library().float() - kern().float()).abs().max().item()
+        if not lib_err <= GROUPED_TOL["bfloat16"]:
+            raise AssertionError(f"torch._grouped_mm disagrees with the "
+                                 f"kernel by {lib_err}: not the same work")
         key = f"grouped_matmul[block_t={bt}]"
-        rows[key] = row(
-            key,
-            lambda xg=xg, te=te, bt=bt: ops.grouped_matmul(
-                xg, te, w, block_t=bt, impl="cuda"),
+        rows[key] = r = row(
+            key, kern,
             lambda xg=xg, te=te, bt=bt: ops.grouped_matmul(
                 xg, te, w, block_t=bt, impl="torch"),
-            library, f"torch.matmul per expert segment, {len(segs)} calls",
+            library, "torch._grouped_mm, offs from tile_expert",
             flops, nbytes, reps,
             f"w_gate d={w.shape[1]} F={w.shape[2]}, {xg.shape[0]} padded "
             f"rows, {real} real (B={bb} x S={ss} x top-{cfg.top_k}), "
             f"{used} experts used")
+        r["matmul_per_expert_ms"] = _time_ms(torch, per_expert, reps)
+        # the earlier design in turns (earlier, change, change, earlier,
+        # twice): back-to-back CUDA-event time and host microseconds
+        turns = {"earlier": ([], []), "change": ([], [])}
+        for who in ("earlier", "change", "change", "earlier") * 2:
+            with (earlier_grouped_kernel(yardstick_lib) if who == "earlier"
+                  else contextlib.nullcontext()):
+                turns[who][0].append(_time_ms(torch, kern, reps))
+                turns[who][1].append(_host_us(torch, kern, 2 * reps))
+        with earlier_grouped_kernel(yardstick_lib):
+            r["earlier_device_ms"] = _device_ms(torch, kern, "grouped_mm")
+        r["device_ms"] = _device_ms(torch, kern, "grouped_mm")
+        mean = lambda v: sum(v) / len(v)  # noqa: E731
+        r.update(turns_ms=mean(turns["change"][0]),
+                 earlier_ms=mean(turns["earlier"][0]),
+                 host_us=mean(turns["change"][1]),
+                 earlier_host_us=mean(turns["earlier"][1]))
+        log(f"{key}: matmul per expert segment ({len(segs)} calls) "
+            f"{r['matmul_per_expert_ms']:.4f} ms; in turns with the earlier "
+            f"design (mma.sync, yardsticks/), earlier / change: back to "
+            f"back {turns['earlier'][0]} / {turns['change'][0]} ms (means "
+            f"{r['earlier_ms']:.5f} / {r['turns_ms']:.5f}); host "
+            f"{turns['earlier'][1]} / {turns['change'][1]} us per call "
+            f"(means {r['earlier_host_us']:.2f} / {r['host_us']:.2f}); "
+            f"device {r['earlier_device_ms']} / {r['device_ms']} ms per "
+            "launch (torch.profiler)")
     return rows
 
 
@@ -1417,7 +1711,7 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     t_start = time.perf_counter()
     name, count, smi = device_phase(torch)
-    build_phase()
+    _, yardstick_lib = build_phase()
     kstats = new_stats()
     kernel_phase(torch, np, kstats)
     ds, ds1_rows, main_launches = ds1_phase(torch)
@@ -1434,10 +1728,11 @@ def main() -> int:
     lm_errs, lm_cases = lm_kernels_phase(torch, np)
     lm_wiring_phase(torch, np)
     cfg, model, lm_launches, _ = lm_slice_phase(torch, np)
-    lm_times = lm_timing_phase(torch, np, cfg, model)
+    vlm_launches, vlm_row = lm_vlm_phase(torch, np)
+    lm_times = lm_timing_phase(torch, np, cfg, model, yardstick_lib)
 
     phase("7 summary")
-    from repro_torch.kernels.ref import ATTENTION_BAND_TOL
+    from repro_torch.kernels.ref import ATTENTION_BAND_TOL, GROUPED_BAND_TOL
 
     summary = []
     for kname, line, launches, path in (
@@ -1476,12 +1771,17 @@ def main() -> int:
         **dense_times["float32"],
         **{f"bf16_{k}": v for k, v in dense_times["bfloat16"].items()}))
     flash = lm_times["flash_attention"]
+    phi3 = lm_times["flash_attention[phi-3-vision]"]
     summary.append(dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:125",
         launches=lm_launches["flash_attention"],
-        path="LM-c generate, granite-moe prefill (attn_impl=kernel)",
+        launches_phi3=vlm_launches["flash_attention"],
+        path="LM-c generate, granite-moe prefill (attn_impl=kernel); "
+             "launches_phi3: LM-e generate, phi-3-vision prefill (head dim "
+             "96); times at granite's prefill shape, phi3_* at "
+             "phi-3-vision's",
         max_abs_err=lm_errs["flash_attention"],
         max_band_rel_err=lm_errs["flash_band"],
         compared_cases=lm_cases["flash_attention"],
@@ -1489,7 +1789,7 @@ def main() -> int:
                   "bf16 vs the plain version; max err / max |plain| over "
                   f"64-row bands {ATTENTION_BAND_TOL['float32']} f32 / "
                   f"{ATTENTION_BAND_TOL['bfloat16']} bf16",
-        **flash))
+        **flash, **{f"phi3_{k}": v for k, v in phi3.items()}))
     pre = lm_times["grouped_matmul[block_t=128]"]
     dec = lm_times["grouped_matmul[block_t=8]"]
     summary.append(dict(
@@ -1500,11 +1800,17 @@ def main() -> int:
         launches_block_t_128=lm_launches["grouped_matmul[block_t=128]"],
         launches_block_t_8=lm_launches["grouped_matmul[block_t=8]"],
         path="LM-c generate, granite-moe MoE FFN (moe_dispatch=grouped); "
-             "times at block_t=128 (prefill), decode_* at block_t=8",
+             "times at block_t=128 (prefill), decode_* at block_t=8; "
+             "earlier_*: the kernel's earlier design (yardsticks/) in turns "
+             "in this run",
         max_abs_err=lm_errs["grouped_matmul"],
+        max_band_rel_err=lm_errs["grouped_band"],
         compared_cases=lm_cases["grouped_matmul"],
         tolerance=f"{GROUPED_TOL['float32']} f32 / "
-                  f"{GROUPED_TOL['bfloat16']} bf16 vs the plain version",
+                  f"{GROUPED_TOL['bfloat16']} bf16 vs the plain version; "
+                  "max err / max |plain| over block_t-row bands "
+                  f"{GROUPED_BAND_TOL['float32']} f32 / "
+                  f"{GROUPED_BAND_TOL['bfloat16']} bf16",
         **pre, **{f"decode_{k}": v for k, v in dec.items()}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)

@@ -13,46 +13,55 @@
 // PV at their wgmma rate, and the S x S scores must never reach device
 // memory.
 //
-// What the design does about it (bf16, every head dim 16, 32, 64, 128): a
-// scaled-down FlashAttention-3 forward. A block is one producer warpgroup
-// and two consumer warpgroups (384 threads); setmaxnreg hands the
-// producer's registers (down to 24) to the consumers (up to 240), whose
-// code fits the 168 registers of the launch bound. The grid is persistent,
-// one block an SM: a work item is 128 q rows of one (b, h), each consumer
-// owns 64 of them, and a block walks one item in each round of gridDim.x,
-// longest (causal) items first and in snake order (forward, then backward)
-// so long and short items even out over the blocks. One producer thread
-// loads each item's q tile by TMA into one of two buffers, then its K and V
-// tiles (128 kv rows, 64 at D = 128) into a 3-stage ring, all guarded by
-// full and empty mbarriers, so it runs ahead across items: one item's loads
-// overlap the previous item's compute and epilogue. The tensor maps are 3-D,
-// (D, S, B*H) for q and (D, S, B*KVH) for k and v, built per launch on the
-// host: the S edge is a tensor boundary, TMA zero-fills rows past S, and
-// nothing is copied or padded. Each row of a box is D * 2 bytes under the
-// swizzle of that width (32, 64 or 128 B); D = 128 loads two 64-column
-// boxes. S = Q K^T runs as wgmma m64nBKk16 with q and k both in shared
-// memory (K-major descriptors) and f32 accumulators in registers. The online
-// softmax works on the accumulator layout in the log2 domain with the scale
-// (> 0) folded into one FFMA before ex2.approx: the row max runs as four
-// independent chains and then over the quad; m moves only when the row max
-// passes it by more than 2^8 (p stays below 256), O is rescaled only when a
-// max of the warp moved, and l stays a per-thread partial sum until the
-// epilogue. Only a tile reaching past S, or past a consumer's first row when
-// causal, is masked, and causal items stop at the diagonal. O += P V runs as
-// wgmma with p, rounded to bf16, as the A operand from registers and v as
-// the B operand from shared memory through an MN-major (transposed)
-// descriptor, so no V fragment is gathered by hand; each tile's PV and the
-// next tile's QK^T are issued together, one tensor-core phase between two
-// softmaxes. p is rounded to bf16 for PV, where the JAX kernel keeps it in
-// f32 (flash_attention.py:74-76); the bf16 tolerance covers it, and l sums
-// the f32 p. A fully masked score gives p = 0, and l is clamped at 1e-30 as in
+// Head dims: 16, 32, 64, 80, 96 and 128, in bf16 and f32; any other raises
+// in the wrapper before launch. Scale: any float (the default is D^-0.5).
+//
+// What the design does about it (bf16): a scaled-down FlashAttention-3
+// forward. A block is one producer warpgroup and two consumer warpgroups
+// (384 threads); setmaxnreg hands the producer's registers (down to 24) to
+// the consumers (up to 240), whose code fits the 168 registers of the launch
+// bound. The grid is persistent, one block an SM: a work item is 128 q rows
+// of one (b, h), each consumer owns 64 of them, and a block walks one item
+// in each round of gridDim.x, longest (causal) items first and in snake
+// order (forward, then backward) so long and short items even out over the
+// blocks. One producer thread loads each item's q tile by TMA into one of
+// two buffers, then its K and V tiles (128 kv rows, 64 at D > 64) into a
+// 3-stage ring, all guarded by full and empty mbarriers, so it runs ahead
+// across items: one item's loads overlap the previous item's compute and
+// epilogue. The tensor maps are 3-D, (D, S, B*H) for q and (D, S, B*KVH) for
+// k and v, built per launch on the host: the S edge is a tensor boundary,
+// TMA zero-fills rows past S, and nothing is copied or padded. Each row of a
+// box is min(D, 64) * 2 bytes under the swizzle of that width (32, 64 or 128
+// B); D = 128 loads two 64-column boxes, and so do D = 80 and 96: the map's
+// inner extent stays D, so TMA zero-fills the second box past D (no copy,
+// the D = 128 layout). QK^T runs only D's k16 steps and PV is wgmma
+// m64nDk16, whose MN-major V descriptor reads the boxes as far as column D,
+// so no tensor-core work goes to the padding. S = Q K^T runs as wgmma
+// m64nBKk16 with q and k both in shared memory (K-major descriptors) and f32
+// accumulators in registers. The online softmax works on the accumulator
+// layout in the log2 domain; a scale > 0 is folded into one FFMA before
+// ex2.approx and the row max is taken on the raw scores, any other scale
+// (where the raw max would be the scaled min) multiplies the scores before
+// the max, and at scale 0 every visible key gets p = 1, so a row is the mean
+// of its visible V rows. The row max runs as four independent chains and
+// then over the quad; m moves only when the row max passes it by more than
+// 2^8 (p stays below 256), O is rescaled only when a max of the warp moved,
+// and l stays a per-thread partial sum until the epilogue. Only a tile
+// reaching past S, or past a consumer's first row when causal, is masked,
+// and causal items stop at the diagonal. O += P V runs as wgmma with p,
+// rounded to bf16, as the A operand from registers and v as the B operand
+// from shared memory through an MN-major (transposed) descriptor, so no V
+// fragment is gathered by hand; each tile's PV and the next tile's QK^T are
+// issued together, one tensor-core phase between two softmaxes. p is rounded
+// to bf16 for PV, where the JAX kernel keeps it in f32
+// (flash_attention.py:74-76); the bf16 tolerance covers it, and l sums the
+// f32 p. A fully masked score gives p = 0, and l is clamped at 1e-30 as in
 // the JAX kernel. The epilogue normalises by l and stores bf16 straight from
 // registers (rows past S are skipped). f32 inputs run an FMA kernel on the
-// CUDA cores (32-row q tiles, no TF32). Not done
-// yet: one block serving the G query heads of a KV head (each K/V tile is
-// loaded once per query head), and overlap of one tile's softmax with the
-// next tile's QK^T inside a warpgroup (two score tiles do not fit the 168
-// registers at 128 kv rows).
+// CUDA cores (32-row q tiles, no TF32). Not done yet: one block serving the
+// G query heads of a KV head (each K/V tile is loaded once per query head),
+// and overlap of one tile's softmax with the next tile's QK^T inside a
+// warpgroup (two score tiles do not fit the 168 registers at 128 kv rows).
 //
 // The tensor maps come from cuTensorMapEncodeTiled, a driver-API call,
 // reached through cudaGetDriverEntryPoint, so the library links no more
@@ -75,20 +84,27 @@ constexpr float kLazy = 8.f;          // log2 of the largest p before m moves
 // bf16: wgmma + TMA
 // ---------------------------------------------------------------------------
 
+// D is the head dim of the tensors; DP the width of the tiles in shared
+// memory: D itself at 16, 32, 64 and 128, and 128 at 80 and 96, whose
+// second 64-column box reaches past D and is zero-filled by TMA (the tensor
+// map's inner extent is D).
 template <int D>
 struct FlashCfg {
   static constexpr int NC = 2;                       // consumer warpgroups
   static constexpr int BQ = 64 * NC;                 // q rows a block
-  static constexpr int BK = D == 128 ? 64 : 128;     // kv rows a tile
-  static constexpr int kThreads = 128 * (NC + 1);    // + the producer
   static constexpr int BOXC = D < 64 ? D : 64;       // columns of a TMA box
-  static constexpr int NBOX = D / BOXC;              // boxes across D
+  static constexpr int NBOX = (D + BOXC - 1) / BOXC; // boxes across D
+  static constexpr int DP = NBOX * BOXC;             // D padded to the boxes
+  static_assert(DP == 16 || DP == 32 || DP == 64 || DP == 128,
+                "a wgmma width the kernel is generated for");
+  static constexpr int BK = DP == 128 ? 64 : 128;    // kv rows a tile
+  static constexpr int kThreads = 128 * (NC + 1);    // + the producer
   static constexpr int RB = BOXC * 2;                // bytes a box row = swizzle
   static constexpr int KPB = BOXC / 16;              // k16 steps a box
   static constexpr int STAGES = 3;
   static_assert(STAGES >= 2, "the ring needs two stages");
-  static constexpr int Q_BYTES = BQ * D * 2;
-  static constexpr int KV_BYTES = BK * D * 2;        // one K or one V tile
+  static constexpr int Q_BYTES = BQ * DP * 2;
+  static constexpr int KV_BYTES = BK * DP * 2;       // one K or one V tile
   // wgmma descriptor layout type of the swizzle: B128 1, B64 2, B32 3
   static constexpr uint64_t LAYOUT = RB == 128 ? 1 : RB == 64 ? 2 : 3;
   // barriers: q_full[2], q_empty[2], k_full[STAGES], v_full[STAGES],
@@ -266,6 +282,56 @@ struct Wgmma<64> {
 };
 
 template <>
+struct Wgmma<80> {
+  // d (64 x 80, f32) += A . B, A bf16 in registers, B bf16 in shared
+  // memory, MN-major (transposed)
+  __device__ __forceinline__ static void rs(float (&d)[40],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39"
+        "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<96> {
+  // d (64 x 96, f32) += A . B, A bf16 in registers, B bf16 in shared
+  // memory, MN-major (transposed)
+  __device__ __forceinline__ static void rs(float (&d)[48],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+        "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
+
+template <>
 struct Wgmma<128> {
   // d (64 x 128, f32) (+)= A . B, A and B bf16 in shared memory, K-major
   __device__ __forceinline__ static void ss(float (&d)[64], uint64_t da,
@@ -376,7 +442,12 @@ struct Consumer {
   Bars<D> bar;
   uint32_t sq, sk, sv;   // the current q tile, the K and V stages
   int wg, t, row_wg, rows[2], s, causal;
-  float scale_log2;
+  // scale > 0: scale_log2 is the scale times log2(e), folded into the exp2
+  // FFMA, and the row max is taken on the raw scores. Otherwise (a scale
+  // <= 0 would turn the raw max into the scaled min) prescale holds it,
+  // the scores are scaled before the max, and scale_log2 is 1.
+  float scale_log2, prescale;
+  bool fold;
   // S: accumulator n8 block nt holds rows (g, g + 8) x columns
   // (8 nt + 2 t, + 1) in sc[4 nt, + 4)
   float sc[BK / 2];
@@ -390,7 +461,7 @@ struct Consumer {
     mbar_wait(bar.k_full(it), (it / ST) & 1);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < D / 16; ++kk) {   // past D the boxes hold zeros
       const uint32_t off = (kk % C::KPB) * 32;   // bytes into the row
       const uint64_t da = gmma_desc(
           sq + (kk / C::KPB) * BQ * RB + wg * 64 * RB + off, 16, 8 * RB,
@@ -405,12 +476,17 @@ struct Consumer {
   // The online softmax of tile j's scores: m, this thread's share of l
   // and acc rescaled, p packed to bf16 as the A operand of PV (the k16
   // step kk is score blocks 2 kk, 2 kk + 1). Only a tile reaching past S,
-  // or past this warpgroup's first row when causal, is masked. The scale
-  // (> 0) is folded into the exp2: m is the scaled max and p = 2^(s c - m)
-  // one FFMA from the raw score. The max and sum run as four independent
-  // chains a row, and l stays a per-thread partial sum until the end.
+  // or past this warpgroup's first row when causal, is masked. A scale > 0
+  // is folded into the exp2: m is the scaled max and p = 2^(s c - m) one
+  // FFMA from the raw score; any other scale multiplies the scores first
+  // (c is then 1). The max and sum run as four independent chains a row,
+  // and l stays a per-thread partial sum until the end.
   __device__ __forceinline__ void softmax(int j, uint32_t (&pa)[BK / 16][4]) {
     const int kv0 = j * BK;
+    if (!fold) {
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) sc[i] *= prescale;
+    }
     if (kv0 + BK > s || (causal && kv0 + BK - 1 > row_wg)) {
 #pragma unroll
       for (int i = 0; i < BK / 2; ++i) {
@@ -576,7 +652,9 @@ __global__ void __launch_bounds__(FlashCfg<D>::kThreads, 1)
     c.t = tid & 3;
     c.s = s;
     c.causal = causal;
-    c.scale_log2 = scale_log2;
+    c.fold = scale_log2 > 0.f;
+    c.scale_log2 = c.fold ? scale_log2 : 1.f;
+    c.prescale = scale_log2;
     int it = 0;   // ring position
     for (int n = 0;; ++n) {
       const int w = item_index(n);
@@ -825,8 +903,8 @@ extern "C" {
 
 // o (b, h, s, d) = attention of q (b, h, s, d) over k, v (b, kvh, s, d) on
 // `stream` (a cudaStream_t) of `device`; query head hh reads KV head
-// hh / (h / kvh). bf16 != 0: all four are bf16, else f32. d is 16, 32, 64
-// or 128. Returns the cudaError_t of the launch (0 on success); allocates
+// hh / (h / kvh). bf16 != 0: all four are bf16, else f32. d is 16, 32, 64,
+// 80, 96 or 128; scale is any float. Returns the cudaError_t of the launch (0 on success); allocates
 // nothing.
 int flash_attention_launch(int bf16, int device, const void* q, const void* k,
                            const void* v, void* o, int b, int h, int kvh,
@@ -842,6 +920,8 @@ int flash_attention_launch(int bf16, int device, const void* q, const void* k,
     case 16: err = launch<16>(bf16, q, k, v, o, b, h, kvh, s, scale, causal, st); break;
     case 32: err = launch<32>(bf16, q, k, v, o, b, h, kvh, s, scale, causal, st); break;
     case 64: err = launch<64>(bf16, q, k, v, o, b, h, kvh, s, scale, causal, st); break;
+    case 80: err = launch<80>(bf16, q, k, v, o, b, h, kvh, s, scale, causal, st); break;
+    case 96: err = launch<96>(bf16, q, k, v, o, b, h, kvh, s, scale, causal, st); break;
     case 128: err = launch<128>(bf16, q, k, v, o, b, h, kvh, s, scale, causal, st); break;
     default: err = cudaErrorInvalidValue;
   }
@@ -858,6 +938,8 @@ int flash_attention_smem_bytes(int d, int bf16) {
     case 16: return bf16 ? FlashCfg<16>::SMEM : f32_smem<16>();
     case 32: return bf16 ? FlashCfg<32>::SMEM : f32_smem<32>();
     case 64: return bf16 ? FlashCfg<64>::SMEM : f32_smem<64>();
+    case 80: return bf16 ? FlashCfg<80>::SMEM : f32_smem<80>();
+    case 96: return bf16 ? FlashCfg<96>::SMEM : f32_smem<96>();
     case 128: return bf16 ? FlashCfg<128>::SMEM : f32_smem<128>();
     default: return -1;
   }

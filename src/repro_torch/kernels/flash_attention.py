@@ -22,10 +22,10 @@ import torch
 
 from . import build
 
-__all__ = ["HEAD_DIMS", "LAUNCHES", "smem_bytes", "kv_tiles",
-           "check_contract", "flash_attention"]
+__all__ = ["HEAD_DIMS", "LAUNCHES", "padded_head_dim", "smem_bytes",
+           "kv_tiles", "check_contract", "flash_attention"]
 
-HEAD_DIMS = (16, 32, 64, 128)   # template instances of the kernel
+HEAD_DIMS = (16, 32, 64, 80, 96, 128)   # template instances of the kernel
 
 # Launches of the CUDA kernel, counted where the wrapper launches it.
 LAUNCHES = {"flash_attention": 0}
@@ -46,18 +46,26 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def padded_head_dim(head_dim: int) -> int:
+    """The width of the bf16 kernel's tiles in shared memory: the head dim
+    in 64-column TMA boxes (one box below 64), so 128 at 80 and 96, whose
+    second box TMA zero-fills past the head dim."""
+    return head_dim if head_dim <= 64 else -(-head_dim // 64) * 64
+
+
 def smem_bytes(head_dim: int, bf16: bool) -> int:
     """Dynamic shared memory of one block of the kernel. bf16: 1,024 bytes
     of alignment slack, two 128-row q tiles (the persistent block loads the
     next work item's while it finishes one), a 3-stage ring of K and V
-    tiles (128 rows, 64 at head dim 128) and 13 8-byte mbarriers (q full
-    and empty per q tile, k full, v full and empty per stage). f32: the q
-    and k tiles (32 rows of head_dim + 1), the v tile and the 32 × 33 p
-    tile."""
+    tiles (128 rows, 64 past head dim 64) and 13 8-byte mbarriers (q full
+    and empty per q tile, k full, v full and empty per stage); the tiles
+    are ``padded_head_dim`` wide. f32: the q and k tiles (32 rows of
+    head_dim + 1), the v tile and the 32 × 33 p tile."""
     if bf16:
-        block_k = 64 if head_dim == 128 else 128
-        return (1024 + 2 * 128 * head_dim * 2
-                + 2 * 3 * block_k * head_dim * 2 + 8 * (4 + 3 * 3))
+        dp = padded_head_dim(head_dim)
+        block_k = 64 if dp == 128 else 128
+        return (1024 + 2 * 128 * dp * 2
+                + 2 * 3 * block_k * dp * 2 + 8 * (4 + 3 * 3))
     return 4 * (2 * 32 * (head_dim + 1) + 32 * head_dim + 32 * 33)
 
 
@@ -117,15 +125,11 @@ def flash_attention(q, k, v, *, causal: bool = True, scale=None,
     """Softmax attention of q (B, H, S, D) over k, v (B, KVH, S, D); returns
     (B, H, S, D) in q's dtype. ``block_q`` / ``block_k`` name the reference
     kernel's tiles and only decide the non-causal contract: the CUDA kernel
-    picks its own tiles. ``scale`` must be > 0: the kernel folds it into
-    its exp2."""
+    picks its own tiles. ``scale`` may be any float (default D ** -0.5)."""
     _check(q, k, v, causal, block_q, block_k)
     b, h, s, d = q.shape
     if scale is None:
         scale = d ** -0.5
-    if not scale > 0:
-        raise ValueError(f"the CUDA kernel folds the scale into its exp2 and "
-                         f"needs scale > 0 (got {scale})")
     out = torch.empty_like(q)
     if q.numel():
         lib = _lib()

@@ -14,6 +14,13 @@ raise too. ``ops.py`` chooses between it and the plain PyTorch version in
 ``ref.py``. :data:`LAUNCHES` counts launches; :data:`BLOCK_T_LAUNCHES`
 splits them by ``block_t``. :func:`pad_groups` is the host-side layout
 helper of the reference, copied.
+
+Which kernel of the library runs (the source note says why): bf16 rows
+TMA can address (d and F multiples of 8, x and w 16-byte aligned) take
+the wgmma + TMA kernel at
+block_t 128 and the TMA-fed decode kernel at 8; other bf16 calls an
+element-load kernel; f32 the CUDA-core kernel. :func:`smem_bytes` models
+the TMA-fed kernels' shared memory.
 """
 from __future__ import annotations
 
@@ -24,12 +31,17 @@ import torch
 
 from . import build
 
-__all__ = ["BLOCK_TS", "LAUNCHES", "BLOCK_T_LAUNCHES", "check_layout",
-           "grouped_matmul", "pad_groups"]
+__all__ = ["BLOCK_TS", "KERNELS", "LAUNCHES", "BLOCK_T_LAUNCHES",
+           "check_layout", "smem_bytes", "grouped_matmul",
+           "pad_groups"]
 
 # Row-tile heights the kernel is instantiated for: 128 on prefill, 8 on
 # small-batch decode (the two that repro/models/moe.py picks).
 BLOCK_TS = (8, 128)
+
+# The TMA-fed bf16 kernels, in the order of the library's
+# grouped_mm_smem_bytes.
+KERNELS = ("tma", "decode", "decode_wide")
 
 # Launches of the CUDA kernel, counted where the wrapper launches it.
 LAUNCHES = {"grouped_matmul": 0}
@@ -42,10 +54,29 @@ def _lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.grouped_mm_launch.argtypes = [i, i, p, p, p, p] + [i] * 5 + [p]
         lib.grouped_mm_launch.restype = i
+        lib.grouped_mm_smem_bytes.argtypes = [i]
+        lib.grouped_mm_smem_bytes.restype = i
         lib.grouped_mm_error_string.argtypes = [i]
         lib.grouped_mm_error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
+
+
+def smem_bytes(kernel: str) -> int:
+    """Dynamic shared memory of one block of a TMA-fed bf16 kernel
+    (:data:`KERNELS`). ``tma`` (block_t 128): 1,024 bytes of alignment
+    slack, a 5-stage ring of one 128 × 64 x box and two 64 × 64 w boxes,
+    each consumer's 64 × 128 bf16 output tile staged for the TMA store,
+    a full and an empty 8-byte mbarrier per stage. ``decode`` /
+    ``decode_wide`` (block_t 8): the slack, a 3-stage ring of two / four
+    64 × 64 w boxes and the chunk's 32 x rows (64 columns padded to 72,
+    rounded up to 1 KB), a full mbarrier per stage."""
+    if kernel == "tma":
+        return (1024 + 5 * (128 * 64 * 2 + 2 * 64 * 64 * 2)
+                + 2 * 64 * 128 * 2 + 8 * 2 * 5)
+    boxes = {"decode": 2, "decode_wide": 4}[kernel]
+    x_bytes = -(-32 * 72 * 2 // 1024) * 1024
+    return 1024 + 3 * (boxes * 64 * 128 + x_bytes) + 8 * 3
 
 
 def check_layout(x, tile_expert, w, block_t: int) -> None:

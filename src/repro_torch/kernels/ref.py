@@ -22,6 +22,7 @@ import torch
 __all__ = ["pair_scores_ref", "pair_scores_catalog_ref", "pack_survivor_mask",
            "pair_scores_catalog_compact_ref", "grouped_matmul_ref",
            "attention_ref", "band_rel_err", "ATTENTION_BAND_TOL",
+           "GROUPED_BAND_TOL",
            "full_precision"]
 
 # The bound on band_rel_err(attention kernel, attention_ref): bf16, two
@@ -29,6 +30,11 @@ __all__ = ["pair_scores_ref", "pair_scores_catalog_ref", "pack_survivor_mask",
 # bf16 before p·v); f32, 2**-12, far above f32 rounding over S terms and
 # far below the tenths that a kv-tile fault moves a band by.
 ATTENTION_BAND_TOL = {"float32": 2.0 ** -12, "bfloat16": 2.0 ** -6}
+# The bound on band_rel_err(grouped kernel, grouped_matmul_ref) over
+# block_t row bands: bf16, two bf16 epsilons (both sides round the f32 sum
+# to bf16); f32, 2**-12, far above f32 rounding over d terms and far below
+# what a lost or repeated 64-deep w chunk moves a band by.
+GROUPED_BAND_TOL = {"float32": 2.0 ** -12, "bfloat16": 2.0 ** -6}
 
 
 @contextlib.contextmanager
@@ -116,13 +122,19 @@ def pair_scores_catalog_compact_ref(a, b, catalog, *, threshold: float = 0.8,
 def grouped_matmul_ref(x, tile_expert, w, *, block_t: int = 128):
     """x (T, d) tile-aligned expert-sorted rows; w (E, d, F). Same (T, F)
     as ``grouped_mm.grouped_matmul``: each row tile times its expert's
-    weights, accumulated in f32 (TF32 off), cast to x's dtype. The JAX
-    reference gathers w per token; this gathers it per tile, which is the
-    same function in 1/block_t of the memory."""
+    weights, accumulated in f32 (TF32 off), cast to x's dtype; a tile whose
+    expert id lies outside [0, E) gives zeros, as the kernel's does (the
+    JAX reference's gather would clamp the id). The JAX reference gathers
+    w per token; this gathers it per tile, which is the same function in
+    1/block_t of the memory."""
     t, d = x.shape
+    e = w.shape[0]
+    te = tile_expert.long()
+    live = (te >= 0) & (te < e)
     xt = x.reshape(t // block_t, block_t, d).to(torch.float32)
     with full_precision():
-        out = torch.bmm(xt, w[tile_expert.long()].to(torch.float32))
+        out = torch.bmm(xt, w[te.clamp(0, e - 1)].to(torch.float32))
+    out = torch.where(live[:, None, None], out, 0.0)
     return out.reshape(t, w.shape[2]).to(x.dtype)
 
 

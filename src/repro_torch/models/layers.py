@@ -93,8 +93,10 @@ def gqa_attention(q, k, v, *, causal: bool = True, impl: str = "plain",
     group = h // kv
     if impl == "kernel":
         # g-major (b, s, G, KV, d) -> h-major (b, KV·G, s, d)
+        # (a copy: at G = 1 the reshape is a strided view, and the kernel
+        # takes contiguous tensors)
         qh = q.reshape(b, s, group, kv, d).permute(0, 3, 2, 1, 4) \
-            .reshape(b, h, s, d)
+            .reshape(b, h, s, d).contiguous()
         out = ops.attention(qh, k.transpose(1, 2).contiguous(),
                             v.transpose(1, 2).contiguous(), causal=causal,
                             impl=kernel_impl)

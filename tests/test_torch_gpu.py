@@ -56,6 +56,10 @@ def test_build_and_smem_model(cuda):
         for bf16 in (True, False):
             assert flib.flash_attention_smem_bytes(d, int(bf16)) == \
                 flash_attention.smem_bytes(d, bf16)
+    glib = grouped_mm._lib()
+    for i, kernel in enumerate(grouped_mm.KERNELS):
+        assert glib.grouped_mm_smem_bytes(i) == grouped_mm.smem_bytes(kernel)
+    assert glib.grouped_mm_smem_bytes(len(grouped_mm.KERNELS)) == -1
 
 
 @pytest.mark.parametrize("bm,bn", pair_sim.GEOMETRY_LATTICE)
@@ -190,14 +194,35 @@ def _normal(shape, seed, dtype, device, scale=1.0):
     # edges of the 128-row q and kv tiles: S below one tile, one past a
     # tile, a single row; D = 128 (two TMA boxes a row) with G = 4
     (1, 4, 2, 40, 32, True), (2, 4, 2, 129, 64, True),
-    (2, 4, 2, 1, 64, True), (1, 8, 2, 2048, 128, True)])
+    (2, 4, 2, 1, 64, True), (1, 8, 2, 2048, 128, True),
+    # head dims 80 and 96 (a second 64-column box zero-filled past D):
+    # ragged S, causal and not, G = 1 and 2; phi-3-vision's prefill shape
+    (2, 4, 4, 1000, 96, True), (1, 8, 4, 333, 80, True),
+    (1, 4, 2, 1024, 96, False), (2, 4, 4, 256, 80, False),
+    (2, 4, 2, 129, 96, True), (1, 32, 32, 1600, 96, True)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_kernel_equals_plain(cuda, b, h, kvh, s, d, causal, dtype):
+    _check_flash(cuda, b, h, kvh, s, d, causal, dtype, None)
+
+
+@pytest.mark.parametrize("scale", [-0.125, 0.0])
+@pytest.mark.parametrize("b,h,kvh,s,d,causal", [
+    (2, 4, 2, 300, 64, True), (1, 4, 4, 1000, 96, True),
+    (1, 4, 2, 512, 80, False), (2, 8, 2, 129, 128, True)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_any_scale(cuda, b, h, kvh, s, d, causal, dtype, scale):
+    """A negative scale (the raw max would be the scaled min) and scale 0
+    (every visible key weighs alike: each row is the mean of its visible V
+    rows)."""
+    _check_flash(cuda, b, h, kvh, s, d, causal, dtype, scale)
+
+
+def _check_flash(cuda, b, h, kvh, s, d, causal, dtype, scale):
     q = _normal((b, h, s, d), 1, dtype, cuda)
     k = _normal((b, kvh, s, d), 2, dtype, cuda)
     v = _normal((b, kvh, s, d), 3, dtype, cuda)
-    got = ops.attention(q, k, v, causal=causal, impl="cuda")
-    want = ops.attention(q, k, v, causal=causal, impl="torch")
+    got = ops.attention(q, k, v, causal=causal, scale=scale, impl="cuda")
+    want = ops.attention(q, k, v, causal=causal, scale=scale, impl="torch")
     torch.cuda.synchronize()
     assert got.dtype == q.dtype and got.shape == q.shape
     err = (got.float() - want.float()).abs().max().item()
@@ -227,25 +252,66 @@ def test_grouped_kernel_equals_plain(cuda, t, d, e, f, bt, dtype):
     x = _normal((tp, d), 5, dtype, cuda)
     x[torch.from_numpy(token_map < 0).to(cuda)] = 0    # padding rows
     w = _normal((e, d, f), 6, dtype, cuda, scale=d ** -0.5)
-    got = ops.grouped_matmul(x, te, w, block_t=bt, impl="cuda")
-    want = ops.grouped_matmul(x, te, w, block_t=bt, impl="torch")
-    torch.cuda.synchronize()
-    assert got.dtype == x.dtype and got.shape == (tp, f)
-    err = (got.float() - want.float()).abs().max().item()
-    assert err <= GROUPED_TOL[dtype], err
+    got = _check_grouped(x, te, w, bt, dtype)
     assert not got[torch.from_numpy(token_map < 0).to(cuda)].any()
 
 
+def _check_grouped(x, te, w, bt, dtype):
+    """The kernel against the plain version: the absolute tolerance, and
+    each block_t row band to its own scale (a lost or repeated w chunk
+    moves a band by a share of its magnitude; a band the plain version
+    leaves zero must stay zero)."""
+    got = ops.grouped_matmul(x, te, w, block_t=bt, impl="cuda")
+    want = ops.grouped_matmul(x, te, w, block_t=bt, impl="torch")
+    torch.cuda.synchronize()
+    assert got.dtype == x.dtype and got.shape == (x.shape[0], w.shape[2])
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= GROUPED_TOL[dtype], err
+    band = ref.band_rel_err(got, want, band=bt)
+    assert band <= ref.GROUPED_BAND_TOL[dtype], band
+    return got
+
+
+@pytest.mark.parametrize("layout", ["one_tile", "long_run", "one_expert",
+                                    "ids_outside"])
+@pytest.mark.parametrize("bt", grouped_mm.BLOCK_TS)
+@pytest.mark.parametrize("d,f", [(1024, 512), (40, 48), (24, 20)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grouped_kernel_tile_layouts(cuda, layout, bt, d, f, dtype):
+    """Layouts the decode kernel's chunking and the TMA kernel's items
+    must get right: a single tile; a run of one expert longer than a
+    32-row chunk; every tile on one expert (the decode tail's shape); and
+    expert ids outside [0, E), whose tiles give zeros. d = 40 and F = 48
+    are ragged against the 64-wide tiles and boxes (the TMA-fed kernels);
+    d = 24 and F = 20 are not 16-byte rows (the element-load kernel)."""
+    e = 5
+    te = {"one_tile": [2],
+          "long_run": [0] + [1] * 20 + [3] * 3 + [4],
+          "one_expert": [4] * 12,
+          "ids_outside": [-1, 0, 0, 2, 5, 7]}[layout]
+    if bt == 128:
+        te = te[:6]
+    tiles = len(te)
+    x = _normal((tiles * bt, d), 5, dtype, cuda)
+    x[-bt // 2:] = 0                                  # trailing pad rows
+    w = _normal((e, d, f), 6, dtype, cuda, scale=d ** -0.5)
+    te_t = torch.tensor(te, dtype=torch.int32, device=cuda)
+    got = _check_grouped(x, te_t, w, bt, dtype)
+    dead = torch.tensor([not 0 <= i < e for i in te], device=cuda)
+    assert not got.reshape(tiles, bt, f)[dead].any()
+    assert not got[-bt // 2:].any()
+
+
 def test_lm_wrappers_raise_before_launch(cuda):
-    q = torch.zeros((1, 4, 64, 96), device=cuda)
-    with pytest.raises(ValueError):       # head dim 96 is not built
+    q = torch.zeros((1, 4, 64, 48), device=cuda)
+    with pytest.raises(ValueError):       # head dim 48 is not built
         flash_attention.flash_attention(q, q, q)
+    with pytest.raises(ValueError):       # ... whatever the scale
+        flash_attention.flash_attention(q.bfloat16(), q.bfloat16(),
+                                        q.bfloat16(), scale=0.0)
     q = torch.zeros((1, 4, 200, 64), device=cuda)
     with pytest.raises(ValueError):       # non-causal ragged S
         flash_attention.flash_attention(q, q, q, causal=False)
-    with pytest.raises(ValueError):       # the kernel folds scale > 0
-        flash_attention.flash_attention(q.bfloat16(), q.bfloat16(),
-                                        q.bfloat16(), scale=0.0)
     x = torch.zeros((64, 16), device=cuda)
     w = torch.zeros((2, 16, 8), device=cuda)
     te = torch.zeros((4,), dtype=torch.int32, device=cuda)
@@ -255,22 +321,31 @@ def test_lm_wrappers_raise_before_launch(cuda):
         grouped_mm.grouped_matmul(x[:60], te, w, block_t=8)
 
 
-@pytest.mark.parametrize("arch", ["smollm-360m", "granite-moe-1b-a400m"])
+@pytest.mark.parametrize("arch", ["smollm-360m", "granite-moe-1b-a400m",
+                                  "phi-3-vision-4.2b"])
 def test_generate_on_card_equals_cpu(cuda, arch):
     """A reduced f32 model on the kernel route (flash; grouped for moe)
-    gives the CPU's plain-version logits and greedy tokens."""
+    gives the CPU's plain-version logits and greedy tokens; phi-3-vision
+    keeps its head dim, 96, and its patch prefix."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.models import get_model
     from repro_torch.serve import generate, make_prefill
 
     cfg = reduced(get_config(arch)).replace(attn_impl="kernel",
                                             moe_dispatch="grouped")
+    if cfg.family == "vlm":
+        cfg = cfg.replace(head_dim=get_config(arch).head_dim)
     mod = get_model(cfg)
     cpu = mod.init(cfg, torch.Generator("cpu").manual_seed(0), device="cpu")
     card = mod.empty(cfg, device=cuda)
     card.load_state_dict(cpu.state_dict())
     rng = np.random.default_rng(0)
     batch = {"tokens": rng.integers(0, cfg.vocab, (2, 300))}
+    prefix = 0
+    if cfg.family == "vlm":
+        prefix = cfg.n_patches
+        batch["patches"] = rng.standard_normal(
+            (2, prefix, cfg.d_model)).astype(np.float32)
     ops.reset_launch_counts()
     got = generate(card, cfg, batch, 6)
     assert ops.launch_counts()["flash_attention"] > 0
@@ -278,9 +353,10 @@ def test_generate_on_card_equals_cpu(cuda, arch):
         assert ops.launch_counts()["grouped_matmul"] > 0
     want = generate(cpu, cfg, batch, 6, device="cpu")
     assert torch.equal(got.cpu(), want)
-    logits = make_prefill(cfg)(card, batch, mod.init_cache(cfg, 2, 301))[0]
+    logits = make_prefill(cfg)(card, batch,
+                               mod.init_cache(cfg, 2, 301 + prefix))[0]
     ref_logits = make_prefill(cfg, device="cpu")(
-        cpu, batch, mod.init_cache(cfg, 2, 301, device="cpu"))[0]
+        cpu, batch, mod.init_cache(cfg, 2, 301 + prefix, device="cpu"))[0]
     assert torch.allclose(logits.cpu(), ref_logits, atol=2e-3, rtol=1e-2)
 
 

@@ -3,7 +3,10 @@ the CPU: ``ops.attention`` vs the Pallas flash kernel (interpret mode) and
 ``ref.attention_ref``, ``ops.grouped_matmul`` vs the Pallas grouped
 matmul (interpret mode) and ``ref.grouped_matmul_ref``, at the sweep
 shapes of tests/test_kernels.py and its tolerances (flash 5e-4 f32 /
-3e-2 bf16, grouped 1e-4 f32 / 5e-2 bf16); the port's ``gqa_attention``
+3e-2 bf16, grouped 1e-4 f32 / 5e-2 bf16), flash also at head dims 80 and
+96 and at scales -0.125 and 0; the kernels' shared-memory models;
+``torch._grouped_mm``, the grouped kernel's yardstick on the card, against
+``ref.grouped_matmul_ref``; the port's ``gqa_attention``
 routes vs the reference's ``impl="xla"``; and the reference's head-layout
 mismatch between its ``"xla"`` and ``"interpret"`` routes, which the port
 does not copy."""
@@ -59,6 +62,34 @@ def test_attention_plain_matches_pallas_and_ref(b, h, kvh, s, d, dtype):
     _close(got, pallas, FLASH_TOL[dtype])
     _close(got, jref.attention_ref(qj, kj, vj, causal=True),
            FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("d", [80, 96])
+@pytest.mark.parametrize("scale", [None, -0.125, 0.0])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_plain_matches_pallas_any_head_dim_and_scale(d, scale,
+                                                              causal, dtype):
+    """Head dims 80 and 96 (zamba2's and phi-3-vision's), and a negative and
+    a zero scale: the plain version the kernel is held to on the card
+    against the Pallas kernel in interpret mode and the JAX reference."""
+    rng = np.random.default_rng(d + (0 if scale is None else 1))
+    (qj, qt), (kj, kt), (vj, vt) = (
+        _pair(rng, shape, dtype) for shape in
+        ((1, 4, 128, d), (1, 2, 128, d), (1, 2, 128, d)))
+    got = ops.attention(qt, kt, vt, causal=causal, scale=scale, block_q=128,
+                        block_k=128)
+    assert got.dtype == qt.dtype and got.shape == qt.shape
+    pallas = jops.attention(qj, kj, vj, causal=causal, scale=scale,
+                            block_q=128, block_k=128, impl="interpret")
+    _close(got, pallas, FLASH_TOL[dtype])
+    _close(got, jref.attention_ref(qj, kj, vj, causal=causal, scale=scale),
+           FLASH_TOL[dtype])
+    if scale == 0.0:   # every visible key weighs alike
+        vr = vt.float().repeat_interleave(2, dim=1)
+        n = torch.arange(1, 129, dtype=torch.float32)[:, None]
+        mean = vr.cumsum(-2) / n if causal else vr.mean(-2, keepdim=True)
+        _close(got, mean.expand_as(vr).numpy(), FLASH_TOL[dtype])
 
 
 def test_attention_noncausal_and_its_contract():
@@ -157,14 +188,69 @@ def test_band_rel_err_passes_rounding_and_flags_a_kv_tile_fault(fault,
 def test_flash_smem_model_fits_every_head_dim(d):
     """One block of either flash kernel fits the 227 KB a block may use at
     every head dim it is built for; bf16 holds two 128-row q tiles, a
-    3-stage ring of K and V tiles (128 rows, 64 at D = 128) and its 13
-    mbarriers past 1 KB of alignment."""
+    3-stage ring of K and V tiles (128 rows, 64 past D = 64) and its 13
+    mbarriers past 1 KB of alignment, all as wide as the head dim padded
+    to its 64-column TMA boxes (128 at D = 80 and 96)."""
     from repro_torch.kernels.pair_sim import SMEM_BUDGET_BYTES
     for bf16 in (True, False):
         assert 0 < flash_attention.smem_bytes(d, bf16) <= SMEM_BUDGET_BYTES
-    block_k = 64 if d == 128 else 128
+    dp = flash_attention.padded_head_dim(d)
+    assert dp >= d and dp in (16, 32, 64, 128) and (dp == d or dp % 64 == 0)
+    block_k = 64 if dp == 128 else 128
     assert flash_attention.smem_bytes(d, True) == (
-        1024 + 2 * d * (2 * 128 + 6 * block_k) + 8 * 13)
+        1024 + 2 * dp * (2 * 128 + 6 * block_k) + 8 * 13)
+
+
+@pytest.mark.parametrize("kernel", grouped_mm.KERNELS)
+def test_grouped_smem_model_fits_every_block_t(kernel):
+    """One block of each TMA-fed bf16 grouped kernel fits the 227 KB a
+    block may use, and two blocks an SM where the design counts on it: the
+    wgmma kernel (block_t 128) a 5-stage ring of 32 KB stages and two
+    16 KB output tiles past 1 KB of alignment; the decode kernel (block_t 8) a 3-stage ring of two or four
+    8 KB w boxes and 5 KB of x rows."""
+    from repro_torch.kernels.pair_sim import SMEM_BUDGET_BYTES
+    got = grouped_mm.smem_bytes(kernel)
+    assert 0 < got <= SMEM_BUDGET_BYTES
+    want = {"tma": 1024 + 5 * 32768 + 2 * 16384 + 80,
+            "decode": 1024 + 3 * (2 * 8192 + 5120) + 24,
+            "decode_wide": 1024 + 3 * (4 * 8192 + 5120) + 24}[kernel]
+    assert got == want
+    if kernel != "tma":   # two blocks an SM: 228 KB less 1 KB a block
+        assert 2 * (got + 1024) <= 233_472
+
+
+def _grouped_offsets(tile_expert, e, block_t):
+    """torch._grouped_mm's ``offs`` for a tile layout: expert k's rows end
+    where its last tile ends (empty experts end where the previous one
+    did; the tail tiles, clamped to E - 1, belong to the last expert)."""
+    ends = np.searchsorted(np.asarray(tile_expert), np.arange(e),
+                           side="right") * block_t
+    return torch.from_numpy(ends.astype(np.int32))
+
+
+@pytest.mark.parametrize("t,e,bt", [(300, 6, 8), (50, 3, 8), (700, 4, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grouped_mm_yardstick_is_the_same_function(t, e, bt, dtype):
+    """``torch._grouped_mm`` with ``offs`` built from tile_expert, the
+    grouped kernel's library yardstick on the card, equals
+    ``ref.grouped_matmul_ref`` on skewed layouts (empty experts, tail tiles
+    clamped to E - 1, zero pad rows)."""
+    rng = np.random.default_rng(t + e)
+    sizes = rng.multinomial(t, rng.dirichlet(np.full(e, 0.3)))
+    xs = rng.standard_normal((t, 16)).astype(np.float32)
+    dt = getattr(torch, dtype)
+    x, te, _ = grouped_mm.pad_groups(torch.from_numpy(xs).to(dt), sizes,
+                                     block_t=bt)
+    # the serving layout's static length: the tail tiles name expert E - 1
+    tail = e
+    x = torch.cat([x, torch.zeros((tail * bt, 16), dtype=dt)])
+    te = torch.cat([te, torch.full((tail,), e - 1, dtype=torch.int32)])
+    w = torch.from_numpy(rng.standard_normal((e, 16, 24)).astype(
+        np.float32) * 0.25).to(dt)
+    want = ref.grouped_matmul_ref(x, te, w, block_t=bt)
+    got = torch._grouped_mm(x, w, offs=_grouped_offsets(te.numpy(), e, bt))
+    assert got.shape == want.shape and got.dtype == want.dtype
+    _close(got, want.float().numpy(), GROUPED_TOL[dtype])
 
 
 def test_grouped_contract_and_pad_groups():
