@@ -7,7 +7,10 @@
 //   pair_scores_catalog_compact (_catalog_compact_kernel, _load_strips,
 //     _entry_keep)                      -> catalog_kernel<T, BM, BN, true>
 //   pair_scores_catalog (_catalog_kernel) -> catalog_kernel<T, BM, BN, false>
-//   pair_scores (_kernel)               -> dense_kernel<T, BM, BN>
+//   pair_scores (_kernel)               -> dense_kernel<T, BM, BN> for f32,
+//     and for bf16 that csrc/dense_scores.cu (wgmma + TMA) cannot take:
+//     operands not 16-byte aligned, d % 8 != 0, N % 4 != 0 or block_m 32
+//     (repro_torch/kernels/pair_sim.py::dense_route)
 //
 // Catalog kernels: for catalog entry t the block computes
 // s = A[a_tile*BM:+BM] . B[b_tile*BN:+BN]^T in f32, keeps a cell when
@@ -19,7 +22,9 @@
 // Dense kernel: block (i, j) of a (ceil(M/BM), ceil(N/BN)) grid computes the
 // same f32 dot for rows [i*BM, +BM) x cols [j*BN, +BN) of (M, N) and writes
 // s, or 0 where s < threshold (and, with `triangular`, where row >= col),
-// straight into the (M, N) f32 output.
+// straight into the (M, N) f32 output. It serves every f32 call and the
+// bf16 calls the tensor-core kernel of csrc/dense_scores.cu cannot take;
+// bf16 is widened to f32 as it is loaded, so it costs what f32 costs.
 //
 // What bounds them on an H100: operations. A 128x128 tile at d = 256 is
 // 8.4 MFLOP against at most 256 KB of strips, most of them re-read from L2
@@ -56,8 +61,10 @@
 // Dense kernel: each thread writes its runs straight to device memory
 // (16-byte stores where N allows); with `triangular` a tile wholly on or
 // below the diagonal writes zeros and skips the mainloop, so the triangular
-// case does about half the work. Not done yet: a persistent block that
-// prefetches the next entry's strips during the epilogue.
+// case does about half the work. (bf16 that TMA can address runs
+// csrc/dense_scores.cu instead: a persistent wgmma kernel with a TMA-store
+// epilogue.) Not done yet: a persistent block that prefetches the next
+// entry's strips during the epilogue.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

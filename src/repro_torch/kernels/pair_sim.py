@@ -16,7 +16,17 @@ Three entry points:
 A wrapper checks its CUDA tensors and launches its kernel on the current
 stream, raising if the check or the launch fails; CPU tensors raise too.
 ``ops.py`` chooses between these wrappers and the plain PyTorch versions
-in ``ref.py``. :data:`LAUNCHES` counts kernel launches per wrapper.
+in ``ref.py``. :data:`LAUNCHES` counts kernel launches per wrapper, and
+the dense wrapper's launches per route (``pair_scores[tma]``,
+``pair_scores[fma]``).
+
+The dense scores take one of two routes, chosen by :func:`dense_route`
+from the dtype, d, N, the alignment and the geometry (never by trying one
+and falling back): ``"tma"``, bf16 on the tensor cores
+(``csrc/dense_scores.cu``: wgmma fed by TMA, a persistent grid, a
+TMA-store epilogue), or ``"fma"``, the f32 FMA kernel on the CUDA cores
+(``csrc/pair_sim.cu``'s ``dense_kernel``, for f32 and for the bf16 calls
+the first cannot take).
 
 The TPU kernel's VMEM budget becomes a Hopper shared-memory model:
 :func:`catalog_smem_bytes` is what one block of the CUDA kernel holds and
@@ -25,6 +35,9 @@ The TPU kernel's VMEM budget becomes a Hopper shared-memory model:
 32-column chunks in shared memory and survivors go straight to device
 memory, so neither d nor the capacity enters the model; registers are
 bounded by construction (at most 64 f32 accumulators a thread).
+:func:`dense_tma_smem_bytes` models the bf16 TMA dense kernel (a 4-stage
+ring of 64-column chunks plus the staged f32 sub-tile; 205,888 B at its
+largest sub-tile, 128 × 128).
 """
 from __future__ import annotations
 
@@ -35,8 +48,9 @@ import torch
 
 from . import build
 
-__all__ = ["NCOLS", "GEOMETRY_LATTICE", "SMEM_BUDGET_BYTES",
-           "catalog_smem_bytes", "dense_smem_bytes", "check_smem", "catalog_tile_mask",
+__all__ = ["NCOLS", "GEOMETRY_LATTICE", "SMEM_BUDGET_BYTES", "DENSE_ROUTES",
+           "catalog_smem_bytes", "dense_smem_bytes", "dense_tma_smem_bytes",
+           "check_smem", "catalog_tile_mask", "dense_route",
            "pair_scores_catalog", "pair_scores_catalog_compact",
            "pair_scores", "LAUNCHES"]
 
@@ -67,9 +81,20 @@ _CHUNK = 32            # d columns staged per mainloop step
 _STAGES = 2            # shared stages of the staging ring
 _MAX_ACC = 128 * 128   # sub-tile cells: 64 accumulators per thread
 
-# Launches of each CUDA kernel, counted where the wrapper launches it.
+# The dense kernel's routes (see dense_route).
+DENSE_ROUTES = ("tma", "fma")
+
+# The bf16 wgmma + TMA dense kernel: d columns a k chunk, ring stages,
+# bytes of one staged 64-row x 32-column f32 output box.
+_TMA_CHUNK = 64
+_TMA_STAGES = 4
+_OUT_BOX = 64 * 32 * 4
+
+# Launches of each CUDA kernel, counted where the wrapper launches it;
+# pair_scores also per route.
 LAUNCHES = {"pair_scores_catalog": 0, "pair_scores_catalog_compact": 0,
-            "pair_scores": 0}
+            "pair_scores": 0,
+            **{f"pair_scores[{r}]": 0 for r in DENSE_ROUTES}}
 
 
 def dense_smem_bytes(block_m: int, block_n: int) -> int:
@@ -79,6 +104,35 @@ def dense_smem_bytes(block_m: int, block_n: int) -> int:
     sn = min(block_n, 128)
     sm = min(block_m, _MAX_ACC // sn)
     return 4 * _STAGES * _CHUNK * (sm + sn)
+
+
+def dense_tma_smem_bytes(block_m: int, block_n: int) -> int:
+    """Dynamic shared memory of one block of the bf16 wgmma + TMA dense
+    kernel (block_m >= 64), which works in sub-tiles of sm = min(block_m,
+    128) rows by sn = min(block_n, 128) columns: the 1,024-byte alignment
+    slack, a ring of 4 stages of (sm + sn) rows x 64 bf16 columns, the f32
+    sub-tile staged for the TMA store, one zeroed output box and the
+    stages' full and empty barriers."""
+    sm, sn = min(block_m, 128), min(block_n, 128)
+    return (1024 + _TMA_STAGES * (sm + sn) * _TMA_CHUNK * 2 + sm * sn * 4
+            + _OUT_BOX + 8 * 2 * _TMA_STAGES)
+
+
+def dense_route(a, b, block_m: int, block_n: int) -> str:
+    """The dense kernel that serves ``pair_scores(a, b)`` at (block_m,
+    block_n): ``"tma"`` (``csrc/dense_scores.cu``) for bf16 a and b that
+    TMA can address — 16-byte aligned, d % 8 == 0 (the bf16 row stride)
+    and N % 4 == 0 (the f32 output's row stride) — at block_m >= 64
+    (wgmma's 64-row warpgroups), each geometry at its own tile; ``"fma"``
+    (``csrc/pair_sim.cu``'s ``dense_kernel``) for everything else: f32
+    (an exact f32 dot: TF32 would drop mantissa bits), bf16 that TMA cannot
+    address, and block_m 32. Reads only dtypes, shapes and addresses, so it
+    answers for CPU tensors too."""
+    if (a.dtype == torch.bfloat16 and block_m >= 64
+            and a.shape[1] % 8 == 0 and b.shape[0] % 4 == 0
+            and a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0):
+        return "tma"
+    return "fma"
 
 
 def catalog_smem_bytes(block_m: int, block_n: int) -> int:
@@ -126,6 +180,21 @@ def _lib() -> ctypes.CDLL:
         lib.pair_sim_smem_bytes.restype = i
         lib.pair_sim_error_string.argtypes = [i]
         lib.pair_sim_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+def _dense_lib() -> ctypes.CDLL:
+    lib = build.load("dense_scores")
+    if not getattr(lib, "_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.dense_scores_launch.argtypes = (
+            [i, p, p] + [i] * 5 + [ctypes.c_float, i, p, p])
+        lib.dense_scores_launch.restype = i
+        lib.dense_scores_smem_bytes.argtypes = [i, i]
+        lib.dense_scores_smem_bytes.restype = i
+        lib.dense_scores_error_string.argtypes = [i]
+        lib.dense_scores_error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
 
@@ -223,34 +292,62 @@ def pair_scores_catalog_compact(a, b, catalog, *, threshold: float = 0.8,
     return packed, counts
 
 
+def _launch_dense(route, a, b, out, threshold, triangular, block_m,
+                  block_n):
+    """Launches the dense kernel of ``route`` into ``out``; raises if the
+    launch fails. Counts nothing (the wrapper does)."""
+    m, n, d = a.shape[0], b.shape[0], a.shape[1]
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    thr = float(np.float32(threshold))
+    if route == "tma":
+        lib = _dense_lib()
+        err = lib.dense_scores_launch(
+            a.device.index, a.data_ptr(), b.data_ptr(), m, n, d, block_m,
+            block_n, thr, int(bool(triangular)), out.data_ptr(), stream)
+        what = lib.dense_scores_error_string
+    else:
+        lib = _lib()
+        err = lib.pair_sim_dense_launch(
+            int(a.dtype == torch.bfloat16), a.device.index, a.data_ptr(),
+            b.data_ptr(), m, n, d, block_m, block_n, thr,
+            int(bool(triangular)), out.data_ptr(), stream)
+        what = lib.pair_sim_error_string
+    if err:
+        raise RuntimeError(f"pair_sim dense kernel ({route}) launch failed: "
+                           + what(err).decode())
+
+
 def pair_scores(a, b, *, threshold: float = 0.8, triangular: bool = False,
                 block_m: int = 128, block_n: int = 128):
     """Thresholded scores of every (row of a) × (row of b).
 
     a: (M, d), b: (N, d) float32 or bfloat16 on one CUDA device. Returns
     (M, N) float32: the f32 dot where it is >= ``threshold`` (compared in
-    f32) and, with ``triangular``, row < col; 0 elsewhere. One block per
-    (block_m, block_n) output tile; ragged M, N and d are masked in the
-    kernel, so nothing is padded or copied.
+    f32) and, with ``triangular``, row < col; 0 elsewhere. Ragged M, N and
+    d are masked in the kernel, so nothing is padded or copied.
+
+    :func:`dense_route` picks the kernel: bf16 that TMA can address at
+    block_m >= 64 runs on the tensor cores (``csrc/dense_scores.cu``:
+    wgmma fed by TMA, a persistent grid over the (block_m, block_n) tiles,
+    a TMA-store epilogue; bf16 products are exact in f32, so only the order
+    of the f32 sums differs from the plain version); everything else runs
+    the f32 FMA kernel (``csrc/pair_sim.cu``), one block per tile. Either
+    way a tile wholly on or below the diagonal, with ``triangular``, only
+    stores zeros.
     """
     _check_features(a, b)
     if (block_m, block_n) not in GEOMETRY_LATTICE:
         raise ValueError(f"tile geometry ({block_m}, {block_n}) is not in "
                          f"the kernel's lattice {GEOMETRY_LATTICE}")
     m, n = a.shape[0], b.shape[0]
-    if -(-m // block_m) > 65_535:
+    route = dense_route(a, b, block_m, block_n)
+    if route == "fma" and -(-m // block_m) > 65_535:
         raise ValueError(f"M = {m} needs more than 65,535 row tiles of "
                          f"{block_m}")
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
     if m and n:
-        lib = _lib()
-        err = lib.pair_sim_dense_launch(
-            int(a.dtype == torch.bfloat16), a.device.index, a.data_ptr(),
-            b.data_ptr(), m, n, a.shape[1], block_m, block_n,
-            float(np.float32(threshold)), int(bool(triangular)),
-            out.data_ptr(), torch.cuda.current_stream(a.device).cuda_stream)
-        if err:
-            raise RuntimeError("pair_sim dense kernel launch failed: "
-                               + lib.pair_sim_error_string(err).decode())
+        _launch_dense(route, a, b, out, threshold, triangular, block_m,
+                      block_n)
         LAUNCHES["pair_scores"] += 1
+        LAUNCHES[f"pair_scores[{route}]"] += 1
     return out

@@ -19,6 +19,9 @@ from repro_torch.kernels import ops, pair_sim, ref  # noqa: E402
 from torch_parity import DTYPES, SHAPES, dyadic, unit  # noqa: E402
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# The widths and sizes the bf16 wgmma + TMA route serves on the card:
+# ragged d (8, 40, 72), M or N below one tile.
+TMA_WIDTHS = [(12, 36, 8), (200, 136, 40), (96, 20, 72), (300, 260, 72)]
 
 
 def _port(x, dtype="float32"):
@@ -29,7 +32,7 @@ def _jax(x, dtype="float32"):
     return jnp.asarray(x, getattr(jnp, dtype))
 
 
-@pytest.mark.parametrize("m,n,d", SHAPES)
+@pytest.mark.parametrize("m,n,d", SHAPES + TMA_WIDTHS)
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("triangular", [False, True])
 def test_plain_equals_pallas_interpret_and_ref(m, n, d, dtype, triangular):

@@ -56,6 +56,10 @@ def test_build_and_smem_model(cuda):
         for bf16 in (True, False):
             assert flib.flash_attention_smem_bytes(d, int(bf16)) == \
                 flash_attention.smem_bytes(d, bf16)
+    dlib = pair_sim._dense_lib()
+    for bm, bn in pair_sim.GEOMETRY_LATTICE:
+        assert dlib.dense_scores_smem_bytes(bm, bn) == (
+            pair_sim.dense_tma_smem_bytes(bm, bn) if bm >= 64 else -1)
     glib = grouped_mm._lib()
     for i, kernel in enumerate(grouped_mm.KERNELS):
         assert glib.grouped_mm_smem_bytes(i) == grouped_mm.smem_bytes(kernel)
@@ -409,6 +413,104 @@ def test_dense_wrapper_raises(cuda):
         pair_sim.pair_scores(f.double(), f.double())
     with pytest.raises(ValueError):
         pair_sim.pair_scores(f, f.cpu())
+
+
+# The bf16 wgmma + TMA route (csrc/dense_scores.cu): every geometry it
+# serves, ragged M, N and d (d past one k16 step, past one 64-column chunk,
+# below 16), M or N below one tile; held at the f32 tolerance, since bf16
+# products are exact in f32 and only the order of the f32 sums differs.
+TMA_GEOMETRIES = [g for g in pair_sim.GEOMETRY_LATTICE if g[0] >= 64]
+TMA_SHAPES = [(64, 64, 32), (200, 132, 40), (12, 20, 8), (1024, 1024, 256),
+              (300, 700, 72), (4, 1000, 136), (516, 4, 64)]
+
+
+def _unit_bf16(cuda, n, d, seed):
+    x = np.random.default_rng(seed).standard_normal((n, d)).astype(
+        np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    return torch.from_numpy(x).to(cuda, torch.bfloat16)
+
+
+def _check_dense_route(a, b, bm, bn, triangular, route, tol, thr=0.05):
+    assert pair_sim.dense_route(a, b, bm, bn) == route
+    kw = dict(threshold=thr, triangular=triangular)
+    ops.reset_launch_counts()
+    got = ops.pair_scores(a, b, block_m=bm, block_n=bn, impl="cuda", **kw)
+    counts = ops.launch_counts()
+    assert counts["pair_scores"] == counts[f"pair_scores[{route}]"] == 1
+    want = ops.pair_scores(a, b, impl="torch", **kw)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == torch.float32
+    s = want.where(want != 0, got)
+    flip = (got == 0) != (want == 0)
+    assert bool(((s[flip] - thr).abs() <= tol).all())
+    assert (got - want).abs()[~flip].max().item() <= tol
+    if triangular:
+        assert not got.tril().any()
+    return got, want
+
+
+@pytest.mark.parametrize("m,n,d", TMA_SHAPES)
+@pytest.mark.parametrize("triangular", [False, True])
+@pytest.mark.parametrize("bm,bn", TMA_GEOMETRIES)
+def test_dense_tma_route_equals_plain(cuda, m, n, d, triangular, bm, bn):
+    a = _unit_bf16(cuda, m, d, m + d)
+    b = a if triangular else _unit_bf16(cuda, n, d, n + 2 * d)
+    _check_dense_route(a, b, bm, bn, triangular, "tma",
+                       DENSE_TOL["float32"])
+
+
+@pytest.mark.parametrize("bm,bn", TMA_GEOMETRIES)
+@pytest.mark.parametrize("triangular", [False, True])
+def test_dense_tma_route_dyadic_bit_exact(cuda, bm, bn, triangular):
+    """Integers x 2^-3: every partial sum is exact in f32, so the wgmma
+    route equals the plain version bit for bit, ties at the threshold
+    included; d 200 ends in a ragged 64-column chunk."""
+    a = torch.from_numpy(_dyadic(300, 200, 5)).to(cuda, torch.bfloat16)
+    b = a if triangular else torch.from_numpy(_dyadic(260, 200, 6)).to(
+        cuda, torch.bfloat16)
+    got, want = _check_dense_route(a, b, bm, bn, triangular, "tma", 0.0,
+                                   thr=0.5)
+    assert torch.equal(got, want)
+    assert bool((got == 0.5).any())        # ties at the threshold are kept
+
+
+@pytest.mark.parametrize("case", ["misaligned", "d12", "n130", "bm32"])
+@pytest.mark.parametrize("triangular", [False, True])
+def test_dense_bf16_fma_route(cuda, case, triangular):
+    """bf16 that TMA cannot address, or block_m 32, runs the FMA kernel and
+    counts under its own key."""
+    m, n, d, bm = 200, 132, 64, 64
+    if case == "d12":
+        d = 12
+    elif case == "n130":
+        m = n = 130
+    elif case == "bm32":
+        bm = 32
+    a = _unit_bf16(cuda, m, d, 11)
+    b = a if triangular else _unit_bf16(cuda, n, d, 12)
+    if case == "misaligned":
+        a = torch.cat([a.new_zeros(1), a.flatten()])[1:].view(m, d)
+        if triangular:
+            b = a
+    _check_dense_route(a, b, bm, 128, triangular, "fma",
+                       DENSE_TOL["bfloat16"])
+
+
+def test_dense_tma_launch_refuses_what_tma_cannot_address(cuda):
+    a = _unit_bf16(cuda, 64, 64, 1)
+    out = torch.empty((64, 64), device=cuda)
+    pair_sim._launch_dense("tma", a, a, out, 0.1, False, 64, 64)
+    torch.cuda.synchronize()
+    for args in ((a, a[:62], out[:, :62].contiguous(), 64, 64),   # n % 4
+                 (a[:, :12].contiguous(), a[:, :12].contiguous(), out,
+                  64, 64),                                     # d % 8
+                 (a, a, out, 32, 64),                          # block_m 32
+                 (torch.cat([a.new_zeros(1), a.flatten()])[1:].view(64, 64),
+                  a, out, 64, 64)):                            # alignment
+        x, y, o, bm, bn = args
+        with pytest.raises(RuntimeError):
+            pair_sim._launch_dense("tma", x, y, o, 0.1, False, bm, bn)
 
 
 def _service_workload():
