@@ -59,6 +59,25 @@ The third slice (the dense kernel, tuning, the supervisor, the service):
                supervised service under a fault script; the autotuned
                service's pinned geometry.
 
+The seventh slice (the mesh, one controller driving every shard):
+
+  ER-m mesh    — ``run_er(mesh=make_er_mesh(1))`` at DS1 for every
+               strategy (phase 4's matches, no interconnect bytes); DS1
+               PairRange on 8 logical shards of the card
+               (``make_er_mesh(8, devices=["cuda:0"] * 8)``) with the flat,
+               ring and hierarchical gathers: 7,788 matches each and
+               ``stage1_stats["interconnect"]`` equal to the plan's bytes
+               per device times the launches, ring below flat; Basic on 8
+               shards at ``compact_capacity=4`` (the mask twin on
+               overflow); ``match_sn_dist`` over 8 shards + ``verify_pairs``
+               (7,715); PairRange on a (4, 2) data × model mesh (phase 4's
+               matches but for pairs within NEAR of the threshold, counted);
+               ``ERService(mesh=...)`` on 8 shards over ER-s's traffic
+               (ER-s's 4,892 matches, no build or load in steady state,
+               queries/s and p50/p99 beside ER-s's). Seconds per run and
+               stage-1 kernel seconds beside phase 4's; the launches of the
+               whole phase (both catalog kernels must launch).
+
 LM serving, granite-moe-1b-a400m (``repro_torch.serve.generate``):
 
   LM-a kernels — the flash-attention and grouped-matmul kernels against
@@ -95,8 +114,8 @@ LM serving, granite-moe-1b-a400m (``repro_torch.serve.generate``):
                2): back-to-back and device times (``torch.profiler``) and
                the host microseconds of one call.
 
-Phases run in the order 1-6, D, ER-t, ER-f, ER-s, LM-a, LM-b, LM-c, LM-e,
-LM-d, then 7, the
+Phases run in the order 1-6, D, ER-t, ER-f, ER-s, ER-m, LM-a, LM-b, LM-c,
+LM-e, LM-d, then 7, the
 summary. The last two lines of standard output are the kernel
 summary and ``{"ok": true, "device": {...}}``. Without a card, or without the repo
 beside it, the script exits non-zero and prints no result.
@@ -412,8 +431,24 @@ def kernel_phase(torch, np, stats):
 # 4-5: the main path at DS1
 # ---------------------------------------------------------------------------
 
+def stats_snapshot():
+    """A copy of ``stage1_stats``, its per-flow interconnect counters
+    included."""
+    from repro_torch.er import stage1_stats
+    return {k: dict(v) if isinstance(v, dict) else v
+            for k, v in stage1_stats.items()}
+
+
+def stats_delta(before):
+    """``stage1_stats`` minus a :func:`stats_snapshot`, flow by flow."""
+    now = stats_snapshot()
+    return {k: ({f: n - before[k].get(f, 0) for f, n in v.items()}
+                if isinstance(v, dict) else v - before[k])
+            for k, v in now.items()}
+
+
 def ds1_phase(torch):
-    from repro_torch.er import ERConfig, make_products, run_er, stage1_stats
+    from repro_torch.er import ERConfig, make_products, run_er
     from repro_torch.kernels import ops
 
     phase(f"4 main path: run_er at DS1 (make_products({DS1_N}, seed=0), "
@@ -428,11 +463,11 @@ def ds1_phase(torch):
     # and are held to its reference match set.
     for strategy in ("pair_range", "sorted_neighborhood", "basic",
                      "block_split"):
-        before = dict(stage1_stats)
+        before = stats_snapshot()
         ops.reset_launch_counts()
         res = run_er(ds.titles, ERConfig(strategy=strategy), device="cuda")
         counts = ops.launch_counts()
-        s1 = {k: stage1_stats[k] - before[k] for k in stage1_stats}
+        s1 = stats_delta(before)
         if strategy in ("pair_range", "sorted_neighborhood"):
             refs[strategy] = run_er(
                 ds.titles, ERConfig(strategy=strategy, executor="reference"),
@@ -475,15 +510,15 @@ def ds1_phase(torch):
 
 
 def overflow_phase(ds):
-    from repro_torch.er import ERConfig, run_er, stage1_stats
+    from repro_torch.er import ERConfig, run_er
     from repro_torch.kernels import ops
 
     phase("5 overflow: pair_range at DS1 with compact_capacity=16")
-    before = dict(stage1_stats)
+    before = stats_snapshot()
     ops.reset_launch_counts()
     res = run_er(ds.titles, ERConfig(compact_capacity=16), device="cuda")
     counts = ops.launch_counts()
-    s1 = {k: stage1_stats[k] - before[k] for k in stage1_stats}
+    s1 = stats_delta(before)
     log(f"launches {counts}  stage1_stats {s1}  matches {len(res.matches)}")
     if not (s1["compact_overflows"] > 0
             and counts["pair_scores_catalog"] > 0
@@ -1156,8 +1191,216 @@ def er_service_phase(torch, np, ds):
         f"{tune_s:.2f} s warmup sweep (best measured: {best}); matches "
         f"equal; {len(queries) / (sum(tuned_ms) / 1e3):.1f} queries/s "
         f"(128x128: {len(queries) / total_s:.1f})")
-    return launches
+    return launches, {"served": served, "batches": batches,
+                      "qps": len(queries) / total_s,
+                      "p50": float(np.percentile(ms_a, 50)),
+                      "p99": float(np.percentile(ms_a, 99))}
 
+
+# ---------------------------------------------------------------------------
+# ER-m: the mesh at DS1
+# ---------------------------------------------------------------------------
+
+ER_M_SHARDS = 8
+
+
+def _mesh_run(ds, cfg, mesh, label, want):
+    """One ``run_er(mesh=...)`` at DS1: (result, its stage1_stats delta,
+    its launches, wall seconds); raises unless the matches equal
+    ``want``."""
+    from repro_torch.er import run_er
+    from repro_torch.kernels import ops
+
+    before = stats_snapshot()
+    counts0 = ops.launch_counts()
+    t0 = time.perf_counter()
+    res = run_er(ds.titles, cfg, mesh=mesh, device="cuda")
+    wall = time.perf_counter() - t0
+    s1 = stats_delta(before)
+    counts = {k: v - counts0[k] for k, v in ops.launch_counts().items()}
+    if want is not None and res.matches != want:
+        raise AssertionError(f"{label}: {len(res.matches)} matches differ "
+                             f"from phase 4's {len(want)}")
+    return res, s1, counts, wall
+
+
+def _flows(s1):
+    return {k: v for k, v in s1["interconnect"].items() if v}
+
+
+def er_mesh_phase(torch, np, ds, ds1_rows, er_s):
+    """ER-m: ``run_er(mesh=...)`` at DS1 on ``make_er_mesh(1)`` for every
+    strategy, then on 8 logical shards of the card for every comms
+    policy (and an overflow run through the mask twin), ``match_sn_dist``
+    over 8 shards, PairRange on a (4, 2) data × model mesh, and
+    ``ERService(mesh=...)`` on ER-s's traffic. Returns the launches of the
+    whole phase."""
+    from repro_torch.er import (ERConfig, ERService, ServiceConfig,
+                                compile_counter, featurize, sn_sort_order)
+    from repro_torch.er.compiler import plan_comms, verify_pairs
+    from repro_torch.er.distributed import match_sn_dist
+    from repro_torch.kernels import ops
+    from repro_torch.sharding import make_er_mesh
+
+    phase(f"ER-m the mesh: run_er / match_sn_dist / ERService on "
+          f"make_er_mesh(1) and on {ER_M_SHARDS} logical shards of cuda:0")
+    t_phase = time.perf_counter()
+    ops.reset_launch_counts()
+    one = make_er_mesh(1)
+    for strategy in STRATEGIES:
+        base, _ = ds1_rows[strategy]
+        res, s1, counts, wall = _mesh_run(
+            ds, ERConfig(strategy=strategy), one, strategy, base.matches)
+        if _flows(s1):
+            raise AssertionError(f"{strategy}: a 1-shard mesh counted "
+                                 f"interconnect bytes {_flows(s1)}")
+        tm, tb = res.extra["timings"], base.extra["timings"]
+        log(f"[mesh 1 {strategy}] matches {len(res.matches)} (phase 4: "
+            f"equal), interconnect 0; run {wall:.3f} s (phase 4 total "
+            f"{tb['total_s']:.3f} s), stage-1 kernel {tm['stage1_s']:.4f} "
+            f"s (phase 4: {tb['stage1_s']:.4f} s); launches {counts}")
+
+    mesh8 = make_er_mesh(ER_M_SHARDS, devices=["cuda:0"] * ER_M_SHARDS)
+    pr_base = ds1_rows["pair_range"][0]
+    rows_p = -(-len(ds.titles) // (ER_M_SHARDS * 128)) * ER_M_SHARDS * 128
+    totals = {}
+    for comms in ("flat", "ring", "hierarchical"):
+        res, s1, counts, wall = _mesh_run(
+            ds, ERConfig(comms=comms), mesh8, f"8 shards {comms}",
+            pr_base.matches)
+        if "comms_fallback" in res.extra:
+            raise AssertionError(f"{comms}: plan fell back to flat: "
+                                 f"{res.extra['comms_fallback']}")
+        # (a flat plan reads no tile, hence no catalog)
+        per = (res.schedule["interconnect"]["bytes_received_per_device"]
+               if comms != "flat" else
+               plan_comms(None, rows_p, ER_M_SHARDS, policy="flat",
+                          feature_dim=256).bytes_received_per_device())
+        launches = counts["pair_scores_catalog_compact"] // ER_M_SHARDS
+        names = {"flat": {"flat_bytes": "flat_gather"},
+                 "ring": {"ring_bytes": "ring"},
+                 "hierarchical": {"hier_intra_bytes": "hier_intra",
+                                  "hier_inter_bytes": "hier_inter"}}[comms]
+        want = {k: per[f] * launches for k, f in names.items()
+                if per[f] * launches}
+        if _flows(s1) != want or launches == 0:
+            raise AssertionError(f"{comms}: interconnect {_flows(s1)} != "
+                                 f"plan bytes {per} x {launches} launches")
+        totals[comms] = per["total"]
+        tm = res.extra["timings"]
+        hops = {k: v for k, v in res.schedule.get("interconnect", {}).items()
+                if k in ("hops", "group", "inter_hops")}
+        log(f"[mesh 8 {comms}] matches {len(res.matches)} (equal); plan "
+            f"{hops or 'flat'}, bytes received per device per launch "
+            f"{per}; interconnect "
+            f"{_flows(s1)} = plan x {launches} launches; run {wall:.3f} s, "
+            f"stage-1 kernel {tm['stage1_s']:.4f} s, decode "
+            f"{tm['decode_s']:.4f} s (phase 4: "
+            f"{pr_base.extra['timings']['stage1_s']:.4f} s); launches "
+            f"{counts}")
+    if not totals["ring"] < totals["flat"]:
+        raise AssertionError(f"ring bytes {totals['ring']} not below flat "
+                             f"{totals['flat']}")
+    log(f"ring / flat bytes per device per launch: {totals['ring']} / "
+        f"{totals['flat']} = {totals['ring'] / totals['flat']:.4f}; "
+        f"hierarchical {totals['hierarchical']}")
+
+    basic = ds1_rows["basic"][0]
+    res, s1, counts, wall = _mesh_run(
+        ds, ERConfig(strategy="basic", compact_capacity=4), mesh8,
+        "8 shards overflow", basic.matches)
+    if not (s1["compact_overflows"] > 0 and counts["pair_scores_catalog"]):
+        raise AssertionError(f"overflow did not reach the mask twin: {s1}")
+    log(f"[mesh 8 basic compact_capacity=4] matches {len(res.matches)} "
+        f"(equal); overflows {s1['compact_overflows']}, mask-twin chunks "
+        f"{s1['nonzero_decodes']}; launches {counts}; {wall:.3f} s")
+
+    # RepSN over 8 shards: the sorted features zero-padded to a multiple
+    # of 8 rows (a zero row scores 0 against every row, so it never
+    # survives stage 1 and the band between real rows is unchanged).
+    cfg = ERConfig(strategy="sorted_neighborhood")
+    t0 = time.perf_counter()
+    codes, lens, feats = featurize(ds.titles, cfg)
+    order = sn_sort_order(ds.titles)
+    n = len(order)
+    fs = np.zeros((-(-n // ER_M_SHARDS) * ER_M_SHARDS, feats.shape[1]),
+                  np.float32)
+    fs[:n] = feats[order]
+    before = stats_snapshot()
+    counts0 = ops.launch_counts()
+    ca, cb = match_sn_dist(fs, cfg.window, mesh8,
+                           threshold=cfg.threshold - cfg.filter_margin)
+    ha, hb = verify_pairs(codes[order], lens[order], codes[order],
+                          lens[order], ca, cb, cfg.threshold, device="cuda")
+    s1 = stats_delta(before)
+    counts = {k: v - counts0[k] for k, v in ops.launch_counts().items()}
+    got = {(min(int(order[a]), int(order[b])),
+            max(int(order[a]), int(order[b]))) for a, b in zip(ha, hb)}
+    sn_base = ds1_rows["sorted_neighborhood"][0].matches
+    if got != sn_base or len(got) != DS1_SN_MATCHES:
+        raise AssertionError(f"match_sn_dist: {len(got)} matches, phase 4 "
+                             f"SN {len(sn_base)}")
+    log(f"[match_sn_dist 8 shards] {len(got)} matches (phase 4 SN: equal); "
+        f"halo bytes {_flows(s1)}; launches {counts}; "
+        f"{time.perf_counter() - t0:.3f} s with featurize and stage 2")
+
+    mesh42 = make_er_mesh(4, 2, devices=["cuda:0"] * 8)
+    res, s1, counts, wall = _mesh_run(ds, ERConfig(), mesh42, "(4, 2)",
+                                      None)
+    diff = res.matches ^ pr_base.matches
+    if diff:
+        _, _, fg = featurize(ds.titles, ERConfig())
+        thr = float(np.float32(0.8 - 0.25))
+        for i, j in sorted(diff):
+            sc = float(np.dot(fg[i].astype(np.float64),
+                              fg[j].astype(np.float64)))
+            log(f"  (4, 2) differs on ({i}, {j}): f64 stage-1 score {sc!r}")
+            if abs(sc - thr) > NEAR:
+                raise AssertionError("(4, 2) mesh differs off the "
+                                     "threshold")
+    tm = res.extra["timings"]
+    log(f"[mesh (4, 2) pair_range] matches {len(res.matches)}; {len(diff)} "
+        f"pairs differ from phase 4 (each within {NEAR} of the stage-1 "
+        f"threshold); interconnect {_flows(s1)}; run {wall:.3f} s, stage-1 "
+        f"{tm['stage1_s']:.4f} s (K6 plain bmm + psum + epilogue); launches "
+        f"{counts}")
+
+    corpus = list(ds.titles)
+    batches = er_s["batches"]
+    queries = [q for b in batches for q in b]
+    t0 = time.perf_counter()
+    svc = ERService(corpus, ServiceConfig(), mesh=mesh8, device="cuda")
+    ingest = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    svc.warmup()
+    warm_s = time.perf_counter() - t0
+    before = stats_snapshot()
+    with compile_counter() as steady:
+        responses, ms = _serve(svc, batches)
+    s1 = stats_delta(before)
+    if steady.count != 0:
+        raise AssertionError(f"mesh service: {steady.count} builds/loads in "
+                             f"steady state")
+    served = _union(responses, batches)
+    if served != er_s["served"]:
+        raise AssertionError(f"mesh service: {len(served)} matches, ER-s "
+                             f"{len(er_s['served'])}")
+    ms_a = np.asarray(ms)
+    qps = len(queries) / (ms_a.sum() / 1e3)
+    log(f"[ERService mesh {ER_M_SHARDS} shards] streaming == batch: "
+        f"{len(served)} cross matches, equal to ER-s's; 0 builds/loads in "
+        f"steady state; ingest {ingest:.3f} s, warmup {warm_s:.3f} s; "
+        f"{qps:.1f} queries/s, p50 {np.percentile(ms_a, 50):.2f} ms, p99 "
+        f"{np.percentile(ms_a, 99):.2f} ms (ER-s single device: "
+        f"{er_s['qps']:.1f} queries/s, p50 {er_s['p50']:.2f} ms, p99 "
+        f"{er_s['p99']:.2f} ms); interconnect {_flows(s1)}")
+    del svc
+    launches = ops.launch_counts()
+    for k in ("pair_scores_catalog_compact", "pair_scores_catalog"):
+        if launches[k] == 0:
+            raise AssertionError(f"ER-m launched no {k}")
+    log(f"ER-m launches {launches}; {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 # ---------------------------------------------------------------------------
 # LM serving: granite-moe-1b-a400m through repro_torch.serve.generate
@@ -1842,8 +2085,9 @@ def main() -> int:
     dstats, dense_launches, dense_times = dense_phase(torch, np, ds)
     er_tuned_phase(ds, ds1_rows)
     er_faults_phase(ds)
-    er_s_launches = er_service_phase(torch, np, ds)
-    del ds, ds1_rows
+    er_s_launches, er_s = er_service_phase(torch, np, ds)
+    er_m_launches = er_mesh_phase(torch, np, ds, ds1_rows, er_s)
+    del ds, ds1_rows, er_s
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 is on for f32 matmuls; the f32 plain "
                              "versions and LM-b assume it off")
@@ -1870,6 +2114,7 @@ def main() -> int:
             replaces=f"src/repro/kernels/pair_sim.py:{line}",
             launches=launches, path=path,
             er_s_launches=er_s_launches[kname],
+            er_m_launches=er_m_launches[kname],
             max_abs_err=kstats[kname]["max_abs_err"],
             near_threshold_flips=kstats[kname]["near_flips"],
             compared_cases=kstats[kname]["cases"],

@@ -1,6 +1,8 @@
 """Host planning for the port: numpy copies of ``repro.core`` — BDM,
 Basic, BlockSplit, PairRange, Sorted Neighborhood and the two-source
-extension — without the jit-able ``*_jnp`` twins."""
+extension. Of the jit-able ``*_jnp`` twins only ``pairs_of_range_jnp``
+is ported, as the torch ``pairs_of_range_torch`` the legacy mesh executor
+uses."""
 from . import enumeration  # noqa: F401
 from .assignment import greedy_lpt, greedy_lpt_hetero, makespan_stats  # noqa: F401
 from .basic import BasicPlan, plan_basic  # noqa: F401
@@ -22,6 +24,7 @@ from .pair_range import (  # noqa: F401
     entity_range_matrix,
     map_output_size,
     pairs_of_range,
+    pairs_of_range_torch,
     plan_pair_range,
     range_block_intervals,
 )

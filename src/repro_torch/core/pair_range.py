@@ -18,6 +18,7 @@ from dataclasses import dataclass
 from typing import List, Tuple
 
 import numpy as np
+import torch
 
 from . import enumeration as en
 
@@ -25,6 +26,7 @@ __all__ = [
     "PairRangePlan",
     "plan_pair_range",
     "pairs_of_range",
+    "pairs_of_range_torch",
     "range_block_segments",
     "range_block_intervals",
     "entity_range_matrix",
@@ -66,6 +68,41 @@ def pairs_of_range(plan: PairRangePlan, k: int):
     p = np.arange(lo, hi, dtype=np.int64)
     block, x, y = en.invert_pair_index(p, plan.block_sizes, plan.offsets)
     return block, x, y, plan.estart[block] + x, plan.estart[block] + y
+
+
+def pairs_of_range_torch(sizes, offsets, estart, lo: int, count: int,
+                         total: int):
+    """Torch twin of the reference's ``pairs_of_range_jnp``: the ``count``
+    pairs from global pair index ``lo`` on (padded past ``total``), on the
+    device of ``sizes``. Returns (row_a, row_b, valid) int64 / bool —
+    padded entries get row 0 and valid False.
+
+    The same float32 estimate of the triangular root and 8 integer repair
+    passes, in int64 (the reference's int32 product ``x·(2n−x−1)``
+    overflows for blocks above ~46k rows; here it does not)."""
+    sizes = sizes.to(torch.int64)
+    offsets = offsets.to(torch.int64)
+    estart = estart.to(torch.int64)
+    p = lo + torch.arange(count, dtype=torch.int64, device=sizes.device)
+    valid = p < total
+    pc = torch.where(valid, p, 0)
+    block = torch.searchsorted(offsets, pc, right=True) - 1
+    q = pc - offsets[block]
+    n = sizes[block]
+    af = (2 * n - 1).to(torch.float32)
+    disc = torch.clamp(af * af - 8.0 * q.to(torch.float32), min=0.0)
+    est = (af - torch.sqrt(disc)) / 2.0
+    hi = torch.clamp(n - 2, min=0)
+    x = torch.minimum(torch.clamp(torch.floor(est).to(torch.int64), min=0),
+                      hi)
+    for _ in range(8):
+        s_x = (x * (2 * n - x - 1)) // 2
+        x = torch.where(s_x > q, x - 1, x)
+        s_x1 = ((x + 1) * (2 * n - x - 2)) // 2
+        x = torch.where(s_x1 <= q, x + 1, x)
+    x = torch.minimum(torch.clamp(x, min=0), hi)
+    y = q - (x * (2 * n - x - 1)) // 2 + x + 1
+    return estart[block] + x, estart[block] + y, valid
 
 
 def range_block_segments(plan: PairRangePlan, k: int) -> List[Tuple[int, int, int, int, int]]:

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "synchronize"]
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -20,3 +20,11 @@ def resolve_device(device="cuda") -> torch.device:
         raise RuntimeError("CUDA is not available; pass device='cpu' to "
                            "run the plain PyTorch versions on the CPU")
     return dev
+
+
+def synchronize(devices) -> None:
+    """Wait for the work queued on every CUDA device among ``devices``
+    (each distinct device once; CPU devices need no wait)."""
+    for dev in set(devices):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)

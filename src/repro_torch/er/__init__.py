@@ -1,8 +1,8 @@
-"""Entity resolution on the card: featurization, blocking, the stage-2
-verifier, the synthetic datasets, the match-job compiler (with tuning,
-feedback and the fault-tolerant supervisor), the end-to-end pipeline and
-the resident service with its batcher — the single-device part of
-``repro.er``."""
+"""Entity resolution on the card: featurization, blocking, similarity,
+the synthetic datasets, the match-job compiler (with tuning, feedback,
+the fault-tolerant supervisor and the mesh executor), the end-to-end
+pipeline, the resident service with its batcher, and the mesh runtime
+(``er.distributed``) — the port of ``repro.er``."""
 from .blocking import (  # noqa: F401
     dense_block_ids,
     exponential_block_ids,
@@ -48,4 +48,9 @@ from .service import (  # noqa: F401
     compile_counter,
 )
 from .batcher import AdmissionError, ERBatcher  # noqa: F401
-from .similarity import edit_distance, edit_similarity  # noqa: F401
+from .similarity import (  # noqa: F401
+    cosine_scores,
+    edit_distance,
+    edit_similarity,
+    two_stage_match,
+)

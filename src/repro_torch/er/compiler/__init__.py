@@ -1,11 +1,12 @@
-"""Match-job compiler, single host: plan → catalog → schedule → execute.
+"""Match-job compiler: plan → catalog → schedule → execute.
 
 Port of ``repro.er.compiler``. ``ir``, ``lower``, ``schedule``,
-``feedback``, ``tune`` and ``faults`` are numpy copies (the plan IR,
-tiling, the exact cost-LPT scheduler with its EWMA calibration, the
-geometry autotuner and the fault scripts); ``execute`` drives the CUDA
-catalog kernels, alone or under the fault-tolerant supervisor. The mesh
-(``comms`` beyond its policy names) comes with a later slice.
+``comms``, ``feedback``, ``tune`` and ``faults`` are numpy copies (the
+plan IR, tiling, the exact cost-LPT scheduler with its EWMA calibration,
+the mesh's locality and byte planner, the geometry autotuner and the
+fault scripts); ``execute`` drives the CUDA catalog kernels on one device,
+on a device mesh (``make_scorer``), or under the fault-tolerant
+supervisor.
 """
 from .ir import (  # noqa: F401
     A_TILE, B_TILE, R0, R1, C0, C1, TRI, LB_R, LB_C, UB_R, UB_C, BAND, RED,
@@ -25,7 +26,17 @@ from .lower import (  # noqa: F401
     pad_tiles,
     task_tiles,
 )
-from .comms import COMMS_POLICIES  # noqa: F401
+from .comms import (  # noqa: F401
+    COMMS_POLICIES,
+    CommsPlan,
+    comms_volume,
+    default_group,
+    halo_bytes_per_device,
+    halo_hop_rows,
+    plan_comms,
+    psum_bytes_per_device,
+    rewrite_tiles_local,
+)
 from .schedule import (  # noqa: F401
     NoHealthyDevicesError,
     Schedule,
@@ -59,11 +70,13 @@ from .faults import (  # noqa: F401
     TransientScorerError,
 )
 from .execute import (  # noqa: F401
+    CatalogScorer,
     RecoveryFailedError,
     ShardRecord,
     SupervisedReport,
     execute,
     execute_supervised,
+    make_scorer,
     match_catalog,
     score_catalog,
     shard_sane,

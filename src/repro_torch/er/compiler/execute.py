@@ -1,18 +1,24 @@
-"""Execution, single host: stage 1 (kernel cosine filter) over a lowered
-catalog, stage 2 (exact edit distance) on its survivors, and the fused
-entry point.
+"""Execution: stage 1 (kernel cosine filter) over a lowered catalog —
+on one device or on a device mesh — stage 2 (exact edit distance) on its
+survivors, and the fused entry point.
 
-Port of the single-host half of ``repro.er.compiler.execute``:
-``score_catalog`` runs the catalog through the CUDA catalog kernels in
-fixed-size chunks (padded to powers of two with all-zero entries, which
-keep nothing because ``r0 == r1``) and decodes each chunk's packed
-survivors on the host; a chunk whose EXACT count overflows the capacity
-is re-scored through the dense-mask kernel. ``verify_pairs`` is stage 2
-on the device, ``match_catalog`` fuses the two. ``execute_supervised``
-is the fault-tolerant supervisor: tiles scheduled onto logical device
-shards, each shard scored by ``score_catalog`` on the card, failed
-shards re-scheduled tile by tile. The mesh path belongs to a later
-slice and raises ``NotImplementedError``.
+Port of ``repro.er.compiler.execute``. ``score_catalog`` runs the catalog
+through the CUDA catalog kernels on one device in fixed-size chunks
+(padded to powers of two with all-zero entries, which keep nothing
+because ``r0 == r1``) and decodes each chunk's packed survivors on the
+host; a chunk whose EXACT count overflows the capacity is re-scored
+through the dense-mask kernel. ``execute(mesh=...)`` scores per-device
+tile shards through a :func:`make_scorer` data flow — self-join, cross
+(b replicated) or the RepSN halo — with the flat, ring or hierarchical
+gather of ``compiler.comms`` and an optional model axis (partial scores
+psum-combined before the epilogue); one process drives every shard (see
+:mod:`repro_torch.sharding`), each shard's kernel runs on the shard's
+device, and every flow's bytes received per device land in
+``stage1_stats["interconnect"]``. ``verify_pairs`` is stage 2 on the
+device, ``match_catalog`` fuses the two. ``execute_supervised`` is the
+fault-tolerant supervisor: tiles scheduled onto logical device shards,
+each shard scored by ``score_catalog`` on the card, failed shards
+re-scheduled tile by tile.
 """
 from __future__ import annotations
 
@@ -23,15 +29,22 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from ...device import resolve_device
+from ...device import resolve_device, synchronize
+from ...sharding import (Sharded, all_gather, ppermute, psum, replicate,
+                         shard_rows)
+from .comms import (COMMS_POLICIES, CommsPlan, halo_bytes_per_device,
+                    plan_comms, psum_bytes_per_device, rewrite_tiles_local)
 from .faults import DeviceKilledError, FaultInjector, TransientScorerError
 from .feedback import N_TILE_CLASSES, EwmaCostModel, tile_class
 from .ir import A_TILE, B_TILE, NCOLS, TileCatalog
-from .schedule import NoHealthyDevicesError, schedule_tiles, tile_costs
+from .lower import pad_tiles
+from .schedule import (NoHealthyDevicesError, Schedule, schedule_tiles,
+                       tile_costs, tiles_for_devices)
 
-__all__ = ["execute", "execute_supervised", "score_catalog", "stage1_stats",
-           "verify_pairs", "match_catalog", "shard_sane", "ShardRecord",
-           "SupervisedReport", "RecoveryFailedError"]
+__all__ = ["CatalogScorer", "execute", "execute_supervised", "make_scorer",
+           "score_catalog", "stage1_stats", "verify_pairs", "match_catalog",
+           "shard_sane", "ShardRecord", "SupervisedReport",
+           "RecoveryFailedError"]
 
 
 def _pad_pow2(t: int, cap: int) -> int:
@@ -47,11 +60,20 @@ def _pad_pow2(t: int, cap: int) -> int:
 #   compact_overflows — compact chunks whose exact counts exceeded the
 #                       capacity, forcing the exact mask-path fallback
 #   kernel_seconds    — wall time from launch until the counts (or the
-#                       mask) are ready on the device
+#                       mask) are ready on the device (a mesh launch's
+#                       gathers included)
 #   decode_seconds    — device→host copy of the survivors + host decode
+#   interconnect      — bytes RECEIVED per device, per data flow, summed
+#                       over mesh launches (each launch re-runs its
+#                       gather), from the exact formulas of
+#                       ``compiler.comms``, as the JAX package counts them
 stage1_stats: dict = {"compact_decodes": 0, "nonzero_decodes": 0,
                       "compact_overflows": 0, "kernel_seconds": 0.0,
-                      "decode_seconds": 0.0}
+                      "decode_seconds": 0.0,
+                      "interconnect": {"flat_bytes": 0, "ring_bytes": 0,
+                                       "hier_intra_bytes": 0,
+                                       "hier_inter_bytes": 0,
+                                       "halo_bytes": 0, "psum_bytes": 0}}
 
 
 def _to_device(x, device: torch.device) -> torch.Tensor:
@@ -75,11 +97,6 @@ def _decode_packed(packed: np.ndarray, counts: np.ndarray,
     rows_a = chunk[ti, A_TILE].astype(np.int64) * bm + flat // bn
     rows_b = chunk[ti, B_TILE].astype(np.int64) * bn + flat % bn
     return rows_a, rows_b
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def score_catalog(feats_a, catalog: TileCatalog, feats_b=None, *,
@@ -138,7 +155,7 @@ def score_catalog(feats_a, catalog: TileCatalog, feats_b=None, *,
         t0 = time.perf_counter()
         mask = ops.pair_scores_catalog(fa, fb, chunk_t, threshold=threshold,
                                        block_m=bm, block_n=bn, impl=impl)
-        _sync(dev)
+        synchronize([dev])
         t1 = time.perf_counter()
         stage1_stats["kernel_seconds"] += t1 - t0
         stage1_stats["nonzero_decodes"] += 1
@@ -152,21 +169,468 @@ def score_catalog(feats_a, catalog: TileCatalog, feats_b=None, *,
     return np.concatenate(out_a), np.concatenate(out_b)
 
 
+# ---------------------------------------------------------------------------
+# Mesh stage 1
+# ---------------------------------------------------------------------------
+
+class CatalogScorer:
+    """A per-shard catalog scorer bound to one device grid, plus the
+    metadata :func:`_score_and_compact` needs to decode its output.
+    ``compact`` scorers return per-shard ``(packed, counts)`` lists from
+    the kernel's on-device compaction epilogue; mask scorers a list of
+    per-shard dense survivor masks. Callable like the bare function, with
+    a mask twin for the exact fallback on capacity overflow, built on
+    first use."""
+
+    def __init__(self, fn, *, grid: np.ndarray, compact: bool,
+                 capacity: int, mask_factory):
+        self._fn = fn
+        self.grid = grid
+        self.compact = compact
+        self.capacity = capacity
+        self._mask_factory = mask_factory
+        self._mask_twin = None
+
+    def __call__(self, *operands):
+        return self._fn(*operands)
+
+    def mask_twin(self) -> "CatalogScorer":
+        """The dense-mask scorer with identical routing — built only if an
+        overflow ever forces the exact fallback."""
+        if self._mask_twin is None:
+            self._mask_twin = self._mask_factory()
+        return self._mask_twin
+
+
+def _raw_to_mask(total, tiles, bm: int, bn: int, threshold: float):
+    """Threshold + catalog-predicate epilogue on COMBINED tile scores —
+    the post-psum half of the model-parallel path (partial scores cannot
+    be thresholded; see ``ref.pair_scores_catalog_raw_ref``). The
+    threshold is compared in f32, as the kernels compare it."""
+    from ...kernels.pair_sim import catalog_tile_mask
+
+    cat = tiles.to(torch.int64)
+    dev = total.device
+    gi = cat[:, 0, None, None] * bm + torch.arange(bm, device=dev)[:, None]
+    gj = cat[:, 1, None, None] * bn + torch.arange(bn, device=dev)[None, :]
+    entry = [cat[:, c, None, None] for c in range(NCOLS)]
+    keep = (total >= float(np.float32(threshold))) & catalog_tile_mask(
+        entry, gi, gj)
+    return keep.to(torch.float32)
+
+
+def make_scorer(mesh, axis: str = "data", *, mode: str = "self",
+                threshold: float, block_m: int = 128, block_n: int = 128,
+                impl: str = "auto", halo: int = 0, compact: bool = False,
+                capacity: Optional[int] = None, comms: str = "flat",
+                hops: int = 0, group: int = 1, inter_hops: int = 0,
+                model_axis: Optional[str] = None) -> CatalogScorer:
+    """Build ONE per-shard catalog scorer for the given data flow on
+    ``mesh`` (a :class:`~repro_torch.sharding.Mesh`). One process drives
+    every shard: the collectives of :mod:`repro_torch.sharding` move each
+    gather's rows between the shards' devices, then every shard's kernel
+    is launched on its own device before any result is read.
+
+    mode="self":  scorer(feats, tiles_chunk)
+    mode="cross": scorer(feats_a, feats_b, tiles_chunk) — b replicated
+    mode="halo":  scorer(feats, tiles_chunk) — ⌈halo/n_loc⌉ chained
+                  neighbor ppermute hops (full strips, then the final
+                  ``take``-row prefix) instead of a gather; tiles index
+                  the [local ‖ halo] strip and each shard receives
+                  exactly ``halo`` rows.
+
+    Features are :class:`~repro_torch.sharding.Sharded` (``feats`` row-
+    sharded, ``feats_b`` replicated); ``tiles_chunk`` is the
+    (n_data, chunk, NCOLS) int32 numpy array of per-shard tiles.
+
+    ``comms`` selects the self/cross gather (``compiler.comms``): "flat"
+    all-gathers; "ring" runs ``hops`` chained forward ppermutes,
+    assembling the contiguous strip window [d·n_loc, d·n_loc +
+    (hops+1)·n_loc) — tiles must be rewritten to that buffer's local
+    coordinates and placed by the planner's locality rule; "hierarchical"
+    assembles each ``group``-strip panel with an intra-group ring
+    (restored to global row order by a roll by the shard's in-group
+    rank), then exchanges whole panels over ``inter_hops``
+    stride-``group`` hops.
+
+    ``model_axis`` column-shards the features (d/n_model per device):
+    each (data, model) shard computes *partial* tile scores with the raw
+    op (K6, plain PyTorch), a psum over the model group combines them,
+    and the threshold + predicate epilogue runs on the combined scores
+    (packed post-psum by ``ref.pack_survivor_mask`` when ``compact``).
+    The psum reassociates the d-dimensional dot, so a score within float
+    ulps of the threshold can flip against the single-axis path; the
+    data-axis policies reduce in the same order and are bit-exact.
+
+    Without a model axis each shard runs the CUDA catalog kernels (K1
+    with ``compact``, else K2) on its device — or their plain versions on
+    CPU shards (``impl``, as :mod:`repro_torch.kernels.ops` resolves it).
+    ``capacity`` defaults to bm·bn, which can never overflow.
+    """
+    from ...kernels import ops, ref
+
+    cap = capacity if capacity is not None else block_m * block_n
+    if comms not in COMMS_POLICIES:
+        raise ValueError(f"unknown comms policy {comms!r}")
+    if comms != "flat" and mode == "halo":
+        raise ValueError("halo mode has its own neighbor exchange; "
+                         "comms applies to self/cross gathers only")
+    if mode not in ("self", "cross", "halo"):
+        raise ValueError(f"unknown scorer mode {mode!r}")
+    grid = mesh.grid(axis, model_axis)
+    n_data, n_model = grid.shape
+    perm_fwd = [(s, (s - 1) % n_data) for s in range(n_data)]
+
+    def _chain(col, devs, perm, n_hops, take=None):
+        """``n_hops`` chained ppermutes of ``col``; each position's parts
+        in arrival order (its own first). ``take`` trims the last send."""
+        parts, cur = [list(col)], list(col)
+        for k in range(1, n_hops + 1):
+            send = ([c[:take] for c in cur]
+                    if take is not None and k == n_hops else cur)
+            cur = ppermute(send, perm, devs)
+            parts.append(cur)
+        return [torch.cat([p[d] for p in parts], dim=0) if n_hops
+                else col[d] for d in range(n_data)]
+
+    def _gather(col, devs):
+        if comms == "flat":
+            return all_gather(col, devs)
+        if comms == "ring":
+            # Hop k delivers strip d+k; the buffer is the contiguous
+            # global row window starting at this shard's own strip.
+            return _chain(col, devs, perm_fwd, hops)
+        g = group
+        n_loc = col[0].shape[0]
+        perm_intra = [(s, (s // g) * g + ((s % g) - 1) % g)
+                      for s in range(n_data)]
+        perm_inter = [(s, (s - g) % n_data) for s in range(n_data)]
+        panels = _chain(col, devs, perm_intra, g - 1)
+        # Shard G·g+p assembled [strip p, p+1, … (group-relative,
+        # wrapped)]; a roll by its in-group rank restores global row
+        # order, so the panel is one contiguous window for every member.
+        panels = [torch.roll(pn, (d % g) * n_loc, dims=0) if g > 1 else pn
+                  for d, pn in enumerate(panels)]
+        return _chain(panels, devs, perm_inter, inter_hops)
+
+    def _halo(col, devs):
+        if not halo:
+            return list(col)
+        n_loc = col[0].shape[0]
+        k_hops = -(-halo // n_loc)
+        # Before hop k each shard holds strip d+k−1 and forwards it; the
+        # LAST hop sends only the ``take``-row prefix, so each shard
+        # receives exactly halo rows.
+        return _chain(col, devs, perm_fwd, k_hops,
+                      take=halo - (k_hops - 1) * n_loc)
+
+    def _score(a, b, tiles_t):
+        kw = dict(threshold=threshold, block_m=block_m, block_n=block_n,
+                  impl=impl)
+        if compact:
+            return ops.pair_scores_catalog_compact(a, b, tiles_t,
+                                                   capacity=cap, **kw)
+        return ops.pair_scores_catalog(a, b, tiles_t, **kw)
+
+    def job2(*args):
+        *operands, tiles_chunk = args
+        feats = operands[0]
+        tiles = [[torch.from_numpy(np.ascontiguousarray(tiles_chunk[d]))
+                  .to(grid[d, m], non_blocking=True) for m in range(n_model)]
+                 for d in range(n_data)]
+        a_cols, b_cols = [], []
+        for m in range(n_model):
+            devs = list(grid[:, m])
+            bufs = (_halo if mode == "halo" else _gather)(feats.column(m),
+                                                          devs)
+            a_cols.append(bufs)
+            b_cols.append(operands[1].column(m) if mode == "cross" else bufs)
+        out = []
+        for d in range(n_data):
+            if model_axis is None:
+                out.append(_score(a_cols[0][d], b_cols[0][d], tiles[d][0]))
+                continue
+            raw = [ops.pair_scores_catalog_raw(
+                a_cols[m][d], b_cols[m][d], tiles[d][m], block_m=block_m,
+                block_n=block_n, impl=impl) for m in range(n_model)]
+            total = psum(raw, list(grid[d]))[0]
+            mask = _raw_to_mask(total, tiles[d][0], block_m, block_n,
+                                threshold)
+            out.append(ref.pack_survivor_mask(mask, cap) if compact
+                       else mask)
+        if compact:
+            return [o[0] for o in out], [o[1] for o in out]
+        return out
+
+    def mask_factory():
+        return make_scorer(mesh, axis, mode=mode, threshold=threshold,
+                           block_m=block_m, block_n=block_n, impl=impl,
+                           halo=halo, compact=False, comms=comms, hops=hops,
+                           group=group, inter_hops=inter_hops,
+                           model_axis=model_axis)
+
+    return CatalogScorer(job2, grid=grid, compact=compact, capacity=cap,
+                         mask_factory=mask_factory)
+
+
+def _mesh_operands(grid: np.ndarray, feats_a, feats_b=None) -> tuple:
+    """The scorer's operands: ``feats_a`` row-sharded and ``feats_b``
+    replicated over ``grid`` (already :class:`Sharded` ones as they are)."""
+    fa = feats_a if isinstance(feats_a, Sharded) else shard_rows(feats_a,
+                                                                 grid)
+    if feats_b is None:
+        return (fa,)
+    fb = feats_b if isinstance(feats_b, Sharded) else replicate(feats_b,
+                                                                grid)
+    return fa, fb
+
+
+def _score_and_compact(shard, operands, tiles_dev, chunk: int,
+                       bm: int, bn: int,
+                       base_a: Optional[np.ndarray] = None,
+                       base_b: Optional[np.ndarray] = None,
+                       launch_flows=None) -> Tuple[np.ndarray, np.ndarray]:
+    """Drive a :class:`CatalogScorer` chunk by chunk and compact each
+    chunk's output into global (rows_a, rows_b).
+
+    Every shard's kernel is launched before any count is read back; a
+    compact chunk then copies each shard's exact counts and the first
+    ``max(count)`` packed slots of its tiles to the host and decodes them
+    in O(survivors). A chunk whose exact count exceeds the capacity
+    re-scores through the mask twin, exactness over speed. Both paths
+    are counted in ``stage1_stats``, with ``kernel_seconds`` (launch
+    until the counts or masks are ready, gathers included) and
+    ``decode_seconds``. ``base_a``/``base_b`` (n_dev,) shift device-local
+    tile coordinates to global rows on each side (the RepSN and
+    ring/hierarchical local-coordinate paths; cross-mode ring shifts the
+    a-side only); None means that side's tiles carry global strip
+    indices. ``launch_flows(chunk_size) -> {flow: bytes}`` is called once
+    per scorer invocation (mask-twin refires included — every invocation
+    re-runs its gather) and accumulated into
+    ``stage1_stats["interconnect"]``."""
+    cap = tiles_dev.shape[1]
+    is_compact = getattr(shard, "compact", False)
+    devices = list(shard.grid.flat)
+    out_a, out_b = [], []
+
+    def _account(csize: int) -> None:
+        if launch_flows is None:
+            return
+        acc = stage1_stats["interconnect"]
+        for k, v in launch_flows(csize).items():
+            acc[k] = acc.get(k, 0) + v
+
+    def _offsets(dd):
+        return (base_a[dd] if base_a is not None else 0,
+                base_b[dd] if base_b is not None else 0)
+
+    for lo in range(0, cap, chunk):
+        part = tiles_dev[:, lo:lo + chunk]
+        masks = None
+        t0 = time.perf_counter()
+        if is_compact:
+            _account(part.shape[1])
+            packed, counts = shard(*operands, part)
+            counts = np.stack([c.reshape(-1).cpu().numpy()
+                               for c in counts]).astype(np.int64)
+            t1 = time.perf_counter()
+            stage1_stats["kernel_seconds"] += t1 - t0
+            if counts.max(initial=0) <= shard.capacity:
+                stage1_stats["compact_decodes"] += 1
+                for dd in range(part.shape[0]):
+                    kmax = int(counts[dd].max(initial=0))
+                    ra, rb = _decode_packed(
+                        packed[dd][:, :kmax].cpu().numpy(), counts[dd],
+                        part[dd], bm, bn)
+                    off_a, off_b = _offsets(dd)
+                    out_a.append(off_a + ra)
+                    out_b.append(off_b + rb)
+                stage1_stats["decode_seconds"] += time.perf_counter() - t1
+                continue
+            stage1_stats["compact_overflows"] += 1
+            _account(part.shape[1])
+            t0 = time.perf_counter()
+            masks = shard.mask_twin()(*operands, part)
+        if masks is None:
+            _account(part.shape[1])
+            masks = shard(*operands, part)
+        synchronize(devices)
+        t1 = time.perf_counter()
+        stage1_stats["kernel_seconds"] += t1 - t0
+        stage1_stats["nonzero_decodes"] += 1
+        for dd, mask in enumerate(masks):
+            ti, ii, jj = (x.cpu().numpy()
+                          for x in torch.nonzero(mask, as_tuple=True))
+            off_a, off_b = _offsets(dd)
+            out_a.append(off_a + part[dd, ti, A_TILE].astype(np.int64) * bm
+                         + ii)
+            out_b.append(off_b + part[dd, ti, B_TILE].astype(np.int64) * bn
+                         + jj)
+        stage1_stats["decode_seconds"] += time.perf_counter() - t1
+    if not out_a:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    return np.concatenate(out_a), np.concatenate(out_b)
+
+
+def _tiles_by_device(catalog: TileCatalog, n_dev: int,
+                     device_of: np.ndarray) -> np.ndarray:
+    """(n_dev, cap, NCOLS) tile shards from an explicit placement (the
+    comms planner's locality rule), zero-padded like
+    :func:`tiles_for_devices` (empty windows mask everything out)."""
+    counts = np.bincount(device_of, minlength=n_dev)
+    cap = max(int(counts.max(initial=0)), 1)
+    out = np.zeros((n_dev, cap, NCOLS), np.int32)
+    for d in range(n_dev):
+        mine = catalog.tiles[device_of == d]
+        out[d, :mine.shape[0]] = mine
+    return out
+
+
+def _launch_flows_factory(plan: Optional[CommsPlan], halo: int,
+                          n_data: int, n_model: int, n_rows: int,
+                          feature_dim: int, bm: int, bn: int):
+    """Per-launch interconnect accounting for :func:`_score_and_compact`:
+    ``flows(chunk_size) -> {flow: bytes received per device}``, mirroring
+    ``compiler.comms`` exactly (the gather/halo flows are launch-size
+    independent; the psum payload is the launched tile count)."""
+    if n_data <= 1 and n_model <= 1:
+        return None
+    n_loc = -(-n_rows // n_data)
+    d_loc = feature_dim // max(n_model, 1)
+
+    def flows(csize: int) -> dict:
+        out = {}
+        if halo:
+            out["halo_bytes"] = sum(
+                halo_bytes_per_device(n_loc, halo, d_loc))
+        elif plan is not None and plan.policy == "ring":
+            out["ring_bytes"] = plan.hops * n_loc * d_loc * plan.itemsize
+        elif plan is not None and plan.policy == "hierarchical":
+            row = d_loc * plan.itemsize
+            out["hier_intra_bytes"] = (plan.group - 1) * n_loc * row
+            out["hier_inter_bytes"] = (plan.inter_hops * plan.group
+                                       * n_loc * row)
+        elif n_data > 1:
+            out["flat_bytes"] = (n_data - 1) * n_loc * d_loc * 4
+        if n_model > 1:
+            out["psum_bytes"] = psum_bytes_per_device(n_model, csize, bm, bn)
+        return out
+
+    return flows
+
+
 def execute(catalog: TileCatalog, feats_a, feats_b=None, *,
             threshold: float, impl: str = "auto", mesh=None,
-            chunk_tiles: int = 1024, compact: bool = True,
-            compact_capacity: Optional[int] = None,
+            axis: str = "data", chunk_tiles: int = 1024,
+            schedule: Optional[Schedule] = None,
+            healthy: Optional[np.ndarray] = None,
+            scorer: Optional[CatalogScorer] = None,
+            fixed_chunks: bool = False, halo: int = 0,
+            base: Optional[np.ndarray] = None, compact: bool = True,
+            compact_capacity: Optional[int] = None, comms: str = "flat",
+            comms_plan: Optional[CommsPlan] = None,
+            model_axis: Optional[str] = None,
             device="cuda") -> Tuple[np.ndarray, np.ndarray]:
-    """Stage 1 of any lowered catalog on one device: chunked
-    :func:`score_catalog`. Returns host int64 (rows_a, rows_b); run
-    stage 2 via :func:`verify_pairs`."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh execution is not ported yet (ROADMAP Queue 1 item 10: "
-            "mesh)")
-    return score_catalog(feats_a, catalog, feats_b, threshold=threshold,
-                         impl=impl, chunk_tiles=chunk_tiles, compact=compact,
-                         compact_capacity=compact_capacity, device=device)
+    """Stage 1 of ANY lowered catalog: compacted survivor candidates.
+
+    Single device (``mesh=None``): chunked :func:`score_catalog` on
+    ``device`` (comms and model_axis are mesh concepts and are ignored).
+    On a mesh (:class:`~repro_torch.sharding.Mesh`; ``device`` is not
+    read — the mesh names its devices): tiles route to devices via the
+    :class:`Schedule` (cost-LPT placement) or round-robin when none is
+    given, and each device scores its shard through a
+    :func:`make_scorer` data flow — "self" when ``feats_b`` is None,
+    "cross" when it is given (b replicated), "halo" when ``halo > 0``
+    (RepSN boundary replication; implies self-join, ``base`` shifts local
+    survivor coordinates to global rows; any window size). Features are
+    numpy, tensors or already :class:`~repro_torch.sharding.Sharded`; the
+    a-side's rows must divide over the data axis (and its columns over
+    the model axis).
+
+    ``comms`` swaps the flat all-gather for the ring / hierarchical
+    strip exchange: the plan (``comms_plan`` > ``schedule.comms`` >
+    freshly planned from the catalog) carries the locality tile
+    placement, hop counts and buffer origins; tiles are rewritten to
+    buffer-local coordinates and the plan's ``base`` shifts survivors
+    back (a-side only in cross mode). A plan that degraded to flat
+    (``plan.fallback``) runs the flat path. Requires every device
+    healthy — locality placement has no failover. ``model_axis`` adds
+    the second mesh axis: features column-sharded d/n_model, partial
+    scores psum-combined in the scorer. Interconnect bytes per flow
+    accumulate in ``stage1_stats["interconnect"]``, from the comms
+    formulas.
+
+    ``fixed_chunks=True`` pads every device shard UP to a ``chunk_tiles``
+    multiple, so each launch has the shape (n_dev, chunk_tiles, NCOLS) —
+    the resident service's fixed shapes; the default shrinks the chunk
+    to the largest shard (still >= one all-zero tile) for one-shot jobs.
+    Pass ``scorer=`` to reuse a prebuilt :func:`make_scorer`; with
+    ``comms_plan`` its pinned hop count must cover the plan's (extra
+    gathered strips are never referenced, so over-gathering is exact).
+
+    Returns host int64 (rows_a, rows_b); run stage 2 via
+    :func:`verify_pairs`.
+    """
+    if mesh is None:
+        return score_catalog(feats_a, catalog, feats_b,
+                             threshold=threshold, impl=impl,
+                             chunk_tiles=chunk_tiles, compact=compact,
+                             compact_capacity=compact_capacity, device=device)
+    n_data = int(mesh.shape[axis])
+    n_model = int(mesh.shape[model_axis]) if model_axis else 1
+    bm, bn = catalog.block_m, catalog.block_n
+    n_rows = int(feats_a.shape[0])
+    feature_dim = int(feats_a.shape[1])
+
+    plan = comms_plan
+    if plan is None and schedule is not None:
+        plan = getattr(schedule, "comms", None)
+    if plan is None and comms != "flat":
+        if halo:
+            raise ValueError("halo mode has its own neighbor exchange; "
+                             "comms must stay 'flat'")
+        if healthy is not None and not bool(np.all(healthy)):
+            raise ValueError("comms != 'flat' requires all devices healthy "
+                             "(locality placement has no failover); run "
+                             "degraded jobs with comms='flat'")
+        plan = plan_comms(catalog, n_rows, n_data, policy=comms,
+                          n_model=n_model, feature_dim=feature_dim,
+                          self_join=feats_b is None)
+
+    ring_like = plan is not None and plan.policy != "flat"
+    if ring_like:
+        tiles_dev = _tiles_by_device(catalog, n_data, plan.device_of_tile)
+    else:
+        tiles_dev = tiles_for_devices(catalog, n_data, healthy, schedule)
+    if fixed_chunks:
+        chunk = chunk_tiles
+    else:
+        chunk = min(chunk_tiles, max(tiles_dev.shape[1], 1))
+    tiles_dev = pad_tiles(tiles_dev, chunk)
+    base_a = base_b = base
+    if ring_like:
+        tiles_dev = rewrite_tiles_local(tiles_dev, plan.base, bm, bn,
+                                        shift_b=feats_b is None)
+        base_a = plan.base
+        base_b = plan.base if feats_b is None else None
+    if scorer is None:
+        mode = "halo" if halo > 0 else ("cross" if feats_b is not None
+                                        else "self")
+        scorer = make_scorer(mesh, axis, mode=mode, threshold=threshold,
+                             block_m=bm, block_n=bn, impl=impl, halo=halo,
+                             compact=compact, capacity=compact_capacity,
+                             comms=plan.policy if plan is not None else "flat",
+                             hops=plan.hops if plan is not None else 0,
+                             group=plan.group if plan is not None else 1,
+                             inter_hops=(plan.inter_hops
+                                         if plan is not None else 0),
+                             model_axis=model_axis)
+    operands = _mesh_operands(scorer.grid, feats_a, feats_b)
+    flows = _launch_flows_factory(plan, halo, n_data, n_model, n_rows,
+                                  feature_dim, bm, bn)
+    return _score_and_compact(scorer, operands, tiles_dev, chunk, bm, bn,
+                              base_a=base_a, base_b=base_b,
+                              launch_flows=flows)
 
 
 # ---------------------------------------------------------------------------
@@ -531,17 +995,29 @@ def verify_pairs(codes_a, lens_a, codes_b, lens_b, rows_a, rows_b,
 def match_catalog(catalog: TileCatalog, feats_a, codes_a, lens_a, *,
                   feats_b=None, codes_b=None, lens_b=None,
                   threshold: float = 0.8, filter_margin: float = 0.25,
-                  impl: str = "auto", mesh=None, chunk_tiles: int = 1024,
+                  impl: str = "auto", mesh=None, axis: str = "data",
+                  schedule: Optional[Schedule] = None,
+                  chunk_tiles: int = 1024,
                   compact_capacity: Optional[int] = None,
+                  comms: str = "flat",
+                  comms_plan: Optional[CommsPlan] = None,
+                  model_axis: Optional[str] = None,
                   device="cuda") -> Tuple[np.ndarray, np.ndarray]:
     """Fused filter-and-verify: kernel stage 1 over the tile catalog,
     exact stage 2 on its survivors. Returns matched (rows_a, rows_b) —
-    indices into the a-side (and b-side, if distinct) arrays."""
+    indices into the a-side (and b-side, if distinct) arrays.
+    ``axis``/``schedule``/``comms``/``comms_plan``/``model_axis`` pass
+    through to :func:`execute` (mesh runs only); on a mesh stage 2 runs
+    on the mesh's first device."""
     cand_a, cand_b = execute(
         catalog, feats_a, feats_b, threshold=threshold - filter_margin,
-        impl=impl, mesh=mesh, chunk_tiles=chunk_tiles,
-        compact_capacity=compact_capacity, device=device)
+        impl=impl, mesh=mesh, axis=axis, schedule=schedule,
+        chunk_tiles=chunk_tiles, compact_capacity=compact_capacity,
+        comms=comms, comms_plan=comms_plan, model_axis=model_axis,
+        device=device)
     if codes_b is None:
         codes_b, lens_b = codes_a, lens_a
     return verify_pairs(codes_a, lens_a, codes_b, lens_b, cand_a, cand_b,
-                        threshold, device=device)
+                        threshold,
+                        device=mesh.first_device if mesh is not None
+                        else device)

@@ -15,8 +15,10 @@ cross job (paper §III, Appendix I); SN has none.
 ``ERConfig.tune_tiles`` picks each job's tile geometry with the
 occupancy autotuner; ``supervised_devices`` / ``fault_injector=`` run
 stage 1 through the fault-tolerant supervisor, calibrated by
-``feedback=``. A mesh and non-flat comms belong to a later slice and
-raise ``NotImplementedError`` naming their ROADMAP item.
+``feedback=``; ``mesh=`` (a :class:`~repro_torch.sharding.Mesh`) scores
+the main job's catalog on a device mesh with the ``ERConfig.comms``
+gather and, when the mesh's ``model`` axis is larger than 1, the feature
+dimension sharded over it.
 """
 from __future__ import annotations
 
@@ -46,14 +48,15 @@ from ..core.sorted_neighborhood import (
     plan_sorted_neighborhood,
 )
 from ..core.two_source import TwoSourceBDM, plan_pair_range_2src, pairs_of_range_2src
-from ..device import resolve_device
+from ..device import resolve_device, synchronize
 from ..kernels.ops import IMPLS
+from ..sharding import shard_rows
 from .blocking import prefix_block_ids, sn_sort_order
 from .encode import encode_titles, ngram_features
-from .compiler import (EwmaCostModel, MatchJob, Schedule,
+from .compiler import (COMMS_POLICIES, EwmaCostModel, MatchJob, Schedule,
                        TileCatalog, apply_schedule, autotune, cross_job,
                        enumerate_task_pairs, execute_supervised, lower,
-                       plan_to_job, schedule_tiles, stage1_stats)
+                       plan_comms, plan_to_job, schedule_tiles, stage1_stats)
 from .compiler.execute import execute, verify_pairs
 
 __all__ = ["ERConfig", "ERResult", "JobPlan", "run_er", "plan_job",
@@ -99,7 +102,9 @@ class ERConfig:
                                        # executor; overrides block_m/n)
     kernel_impl: str = "auto"          # auto | cuda | torch
     schedule_policy: str = "cost_lpt"  # cost_lpt | round_robin
-    comms: str = "flat"                # other policies: Queue 1 item 10
+    comms: str = "flat"                # mesh= gather policy: flat | ring
+                                       # | hierarchical (ignored without
+                                       # a mesh)
     # ---- fault-tolerant execution (catalog executor only) ----
     supervised_devices: int = 0        # > 0: stage 1 through the supervisor
                                        # on N logical device shards
@@ -194,18 +199,6 @@ def _reference_reducer_rows(plan, r: int) -> List[Tuple[np.ndarray, np.ndarray]]
     return rows
 
 
-def _not_ported(cfg: ERConfig, mesh) -> None:
-    """Options of a later slice raise, naming their ROADMAP Queue 1 item."""
-    todo = []
-    if mesh is not None:
-        todo.append("mesh= (item 10: mesh)")
-    if cfg.comms != "flat":
-        todo.append(f"comms={cfg.comms!r} (item 10: mesh)")
-    if todo:
-        raise NotImplementedError(
-            "not ported yet, see ROADMAP Queue 1: " + "; ".join(todo))
-
-
 @dataclass
 class JobPlan:
     """Job 1 and the strategy's plan, as ``run_er`` runs them."""
@@ -291,15 +284,57 @@ def _tile_geometry(job: MatchJob, cfg: ERConfig,
     return rep.geometry
 
 
+def _lower_plan(plan, cfg: ERConfig,
+                extra: Optional[Dict] = None) -> TileCatalog:
+    job = plan_to_job(plan)
+    return lower(job, *_tile_geometry(job, cfg, extra))
+
+
 def compile_catalog(plan, cfg: ERConfig, extra: Optional[Dict] = None
                     ) -> Tuple[TileCatalog, Schedule]:
-    """``plan_to_job → lower → schedule_tiles``: the tile catalog the
-    catalog executor scores, in scheduled order, and its schedule; the
-    geometry is :func:`_tile_geometry`'s."""
-    job = plan_to_job(plan)
-    catalog = lower(job, *_tile_geometry(job, cfg, extra))
+    """``plan_to_job → lower → schedule_tiles`` on one device: the tile
+    catalog the catalog executor scores, with the scheduled reducers, and
+    its schedule; the geometry is :func:`_tile_geometry`'s."""
+    catalog = _lower_plan(plan, cfg, extra)
     sched = schedule_tiles(catalog, n_dev=1, policy=cfg.schedule_policy)
     return apply_schedule(catalog, sched), sched
+
+
+@dataclass
+class _MeshLayout:
+    """How ``run_er`` lays the main job onto a mesh: the data shard count,
+    the model axis (None at size 1), the zero-padded feature shape and the
+    comms plan (None for flat)."""
+    n_dev: int
+    model_axis: Optional[str]
+    rows: int
+    cols: int
+    comms_plan: Optional[object]
+
+
+def _mesh_layout(mesh, axis: str, catalog: TileCatalog, n_rows: int,
+                 n_cols: int, cfg: ERConfig, extra: Dict) -> _MeshLayout:
+    """Rows pad to a multiple of shards × lcm(bm, bn) and columns to a
+    multiple of the model axis (catalog tiles reference only real rows,
+    and zero columns add 0 to every dot); a non-flat ``cfg.comms`` is
+    planned on the padded rows, its fallback recorded in
+    ``extra["comms_fallback"]``."""
+    n_dev = int(mesh.shape[axis])
+    n_model = (int(mesh.shape["model"])
+               if "model" in mesh.axis_names and axis != "model" else 1)
+    mult = n_dev * int(np.lcm(catalog.block_m, catalog.block_n))
+    rows = -(-n_rows // mult) * mult
+    cols = -(-n_cols // n_model) * n_model
+    comms_plan = None
+    if cfg.comms != "flat":
+        comms_plan = plan_comms(catalog, rows, n_dev, policy=cfg.comms,
+                                n_model=n_model, feature_dim=cols,
+                                self_join=True)
+        if comms_plan.fallback:
+            extra["comms_fallback"] = comms_plan.fallback
+    return _MeshLayout(n_dev=n_dev,
+                       model_axis="model" if n_model > 1 else None,
+                       rows=rows, cols=cols, comms_plan=comms_plan)
 
 
 def run_er(titles: Sequence[str], config: Optional[ERConfig] = None,
@@ -324,8 +359,18 @@ def run_er(titles: Sequence[str], config: Optional[ERConfig] = None,
     stealing; with ``cfg.steal_factor`` set and no model given, a fresh
     one is made for the run. ``cfg.tune_tiles`` lowers each job at the
     autotuner's geometry (``extra["tuned_geometry"]``).
+
+    ``mesh`` (a :class:`~repro_torch.sharding.Mesh`, catalog executor
+    only) runs the main job's catalog through ``compiler.execute`` on the
+    mesh's devices: rows shard over ``axis``, ``cfg.comms`` picks the
+    gather policy (a degraded plan's reason lands in
+    ``extra["comms_fallback"]``), and a ``model`` axis of size > 1 shards
+    the feature dimension with in-scorer psum combination. Features are
+    zero-padded to shard- and tile-divisible sizes (padding rows are never
+    referenced by catalog tiles and padding columns add 0 to every dot).
+    The match_⊥ job and stage 2 run on the mesh's first device. A mesh
+    names its devices, so ``device`` must have the mesh's device type.
     """
-    del axis
     t_start = time.perf_counter()
     n = len(titles)
     cfg = config if config is not None else ERConfig()
@@ -336,14 +381,25 @@ def run_er(titles: Sequence[str], config: Optional[ERConfig] = None,
     supervised = cfg.supervised_devices > 0 or fault_injector is not None
     if supervised and cfg.executor != "catalog":
         raise ValueError("supervised execution requires executor='catalog'")
-    _not_ported(cfg, mesh)
+    if cfg.comms not in COMMS_POLICIES:
+        raise ValueError(f"unknown comms policy {cfg.comms!r}")
     dev = resolve_device(device)
+    if mesh is not None:
+        if supervised:
+            raise ValueError("supervised execution drives logical shards "
+                             "host-side; it cannot also run on a mesh")
+        if cfg.executor != "catalog":
+            raise ValueError("mesh execution requires executor='catalog'")
+        if mesh.device_type != dev.type:
+            raise ValueError(f"device={device!r} is not the mesh's device "
+                             f"type ({mesh.device_type})")
+        dev = mesh.first_device
     if supervised and feedback is None and cfg.steal_factor is not None:
         feedback = EwmaCostModel(max(cfg.supervised_devices, 1))
+    devices = [dev] + (list(mesh.devices.flat) if mesh is not None else [])
 
     def _sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        synchronize(devices)
 
     timings: Dict[str, float] = {}
     t0 = time.perf_counter()
@@ -368,14 +424,16 @@ def run_er(titles: Sequence[str], config: Optional[ERConfig] = None,
     sup = {"attempts": 1, "recovered_tiles": 0, "planned_cost": 0,
            "scored_cost": 0, "steals": 0, "measured_makespan_s": 0.0}
 
-    def _stage1(catalog, feats_a, feats_b=None):
-        """Stage 1 of a catalog: plain, or through the supervisor with its
-        report folded into the run-level recovery accounting."""
+    def _stage1(catalog, feats_a, feats_b=None, **on_mesh):
+        """Stage 1 of a catalog: plain (on a mesh with ``on_mesh``'s
+        execute arguments), or through the supervisor with its report
+        folded into the run-level recovery accounting."""
         threshold = cfg.threshold - cfg.filter_margin
         if not supervised:
             return execute(catalog, feats_a, feats_b, threshold=threshold,
                            impl=cfg.kernel_impl,
-                           compact_capacity=cfg.compact_capacity, device=dev)
+                           compact_capacity=cfg.compact_capacity, device=dev,
+                           **on_mesh)
         ca, cb, rep = execute_supervised(
             catalog, feats_a, feats_b, threshold=threshold,
             n_dev=max(cfg.supervised_devices, 1), impl=cfg.kernel_impl,
@@ -392,15 +450,30 @@ def run_er(titles: Sequence[str], config: Optional[ERConfig] = None,
         sup["measured_makespan_s"] += rep.measured_makespan_s
         return ca, cb
 
+    layout = None
     if cfg.executor == "catalog":
-        catalog, sched = compile_catalog(plan, cfg, extra)
+        catalog = _lower_plan(plan, cfg, extra)
         extra["catalog_tiles"] = catalog.num_tiles
+        if mesh is not None:
+            layout = _mesh_layout(mesh, axis, catalog, to_global.size,
+                                  feats.shape[1], cfg, extra)
+        sched = schedule_tiles(
+            catalog, n_dev=layout.n_dev if layout else 1,
+            policy=cfg.schedule_policy,
+            comms_plan=layout.comms_plan if layout else None)
+        catalog = apply_schedule(catalog, sched)
         sched_report = sched.stats()
     timings["plan_s"] = time.perf_counter() - t_plan - bdm_seconds
 
     # ---- features and codes in blocked (or sorted) order, on the device
+    # (on a mesh: the zero-padded features, row-sharded over its devices)
     t0 = time.perf_counter()
-    g_feats = torch.from_numpy(feats[to_global]).to(dev)
+    if layout is None:
+        g_feats = torch.from_numpy(feats[to_global]).to(dev)
+    else:
+        padded = np.zeros((layout.rows, layout.cols), feats.dtype)
+        padded[:to_global.size, :feats.shape[1]] = feats[to_global]
+        g_feats = shard_rows(padded, mesh.grid(axis, layout.model_axis))
     g_codes = torch.from_numpy(codes[to_global]).to(dev)
     g_lens = torch.from_numpy(lens[to_global]).to(dev)
     _sync()
@@ -410,7 +483,10 @@ def run_er(titles: Sequence[str], config: Optional[ERConfig] = None,
     if cfg.executor == "catalog":
         s1 = dict(stage1_stats)
         t0 = time.perf_counter()
-        ca, cb = _stage1(catalog, g_feats)
+        on_mesh = {} if layout is None else dict(
+            mesh=mesh, axis=axis, schedule=sched,
+            model_axis=layout.model_axis)
+        ca, cb = _stage1(catalog, g_feats, **on_mesh)
         t1 = time.perf_counter()
         ha, hb = verify_pairs(g_codes, g_lens, g_codes, g_lens, ca, cb,
                               cfg.threshold, device=dev)

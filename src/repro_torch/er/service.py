@@ -29,11 +29,21 @@ in the blocked layout on device, BDM host-side) and serves
   5. **Residency**: the corpus features go to the device once at ingest,
      as contiguous f32 tensors, with the corpus codes and lengths of the
      verifier; each batch uploads only its query buffer.
+  6. **Sharded index** (``mesh=``, a :class:`~repro_torch.sharding.Mesh`):
+     the corpus features are zero-padded and row-sharded over the mesh's
+     devices at ingest, query batches are replicated, and tiles route
+     tiles → reducers → devices through the compiler's cost-LPT schedule;
+     the cross-mode scorer (`compiler.make_scorer`) is built once (and
+     again only on an autotune re-pin). With ``ServiceConfig.comms`` =
+     "ring" | "hierarchical" a second scorer, pinned at zero hops, replaces
+     the flat corpus gather for keyed jobs, which plan a per-batch
+     :func:`compiler.plan_comms` locality placement; jobs whose plan
+     degrades run the flat scorer. The verifier's codes stay on the
+     mesh's first device.
 
-Port of ``repro.er.service`` on one device (``device=``, default the
-card). The sharded index (``mesh=``) raises ``NotImplementedError``
-(ROADMAP Queue 1 item 10: mesh); as in the JAX package, ``comms`` is
-validated and ignored without a mesh.
+Port of ``repro.er.service`` (``device=``, default the card; with a mesh,
+the mesh's device type). As in the JAX package, ``comms`` is validated
+and ignored without a mesh.
 
 Entities without blocking keys follow the paper's decomposition,
 restricted to cross pairs: null-key queries × whole corpus, plus
@@ -58,13 +68,16 @@ from ..core import blocked_layout, compute_bdm, entity_indices, update_bdm
 from ..core.two_source import (TwoSourceBDM, plan_block_split_2src,
                                plan_pair_range_2src)
 from .blocking import prefix_key
-from ..device import resolve_device
+from ..device import resolve_device, synchronize
 from ..kernels import build, ops
+from ..sharding import Sharded, shard_rows
 from .compiler import (COMMS_POLICIES, GEOMETRY_LATTICE, DeviceKilledError,
                        EwmaCostModel, GeometryCostModel,
-                       NoHealthyDevicesError, SupervisedReport, TransientScorerError, TuneReport,
-                       autotune, cross_job, execute, execute_supervised,
-                       lower, pad_catalog, plan_to_job, verify_pairs)
+                       NoHealthyDevicesError, SupervisedReport,
+                       TransientScorerError, TuneReport, autotune, cross_job,
+                       default_group, execute, execute_supervised, lower,
+                       make_scorer, pad_catalog, plan_comms, plan_to_job,
+                       schedule_tiles, verify_pairs)
 from .compiler.faults import FaultInjector
 from .compiler.ir import NCOLS
 from .pipeline import featurize
@@ -208,6 +221,11 @@ class _PlannedJob:
     lens_b: np.ndarray
     map_a: Optional[np.ndarray]
     map_b: np.ndarray
+    # Resolved comms plan for this job's catalog (mesh= with
+    # cfg.comms != "flat" only): locality tile placement + buffer
+    # origins for the pinned ring/hierarchical scorer. None routes the
+    # job through the flat-gather scorer.
+    comms_plan: Optional[object] = None
 
 
 @dataclass
@@ -248,10 +266,11 @@ class ServiceConfig:
                                             # per tile; None = bm·bn (the
                                             # no-overflow default)
     schedule_policy: str = "cost_lpt"     # cost_lpt | round_robin
-    comms: str = "flat"                   # mesh= gather policy: flat |
-                                          # ring | hierarchical. Ignored
-                                          # without a mesh (the mesh is
-                                          # ROADMAP Queue 1 item 10).
+    comms: str = "flat"                   # mesh= gather policy for keyed
+                                          # jobs: flat | ring |
+                                          # hierarchical. Ignored without
+                                          # a mesh; jobs whose plan
+                                          # degrades run the flat scorer.
     # ---- fault tolerance (DESIGN.md §Fault tolerance) ----
     exec_devices: int = 0                 # > 0: supervised stage 1 over N
                                           # logical device shards
@@ -284,7 +303,9 @@ class ERService:
     query_index_within_batch) pairs with verified similarity >=
     ``cfg.threshold``. The index lives on ``device`` (default the card;
     ``device="cpu"`` runs the plain PyTorch versions of the kernels).
-    ``mesh=`` (the sharded index) is not ported yet.
+    Pass ``mesh=`` for the sharded-index variant (corpus row-sharded over
+    ``axis``, queries replicated); ``device`` must then have the mesh's
+    device type.
     """
 
     def __init__(self, corpus_titles: Sequence[str],
@@ -302,13 +323,28 @@ class ERService:
             raise ValueError(
                 "supervised execution (exec_devices > 0) drives logical "
                 "device shards host-side; it composes with mesh=None only")
-        if mesh is not None:
-            raise NotImplementedError(
-                "the sharded index (mesh=) is not ported yet (ROADMAP "
-                "Queue 1 item 10: mesh)")
-        del axis
+        self.mesh = mesh
+        self.axis = axis
         self.device = resolve_device(device)
+        if mesh is not None:
+            if mesh.device_type != self.device.type:
+                raise ValueError(f"device={device!r} is not the mesh's "
+                                 f"device type ({mesh.device_type})")
+            self.device = mesh.first_device
+            self._grid = mesh.grid(axis)
         ops.resolve_impl(cfg.kernel_impl, self.device)  # "cuda" needs a card
+        self._n_dev = int(mesh.shape[axis]) if mesh is not None else 1
+        # Residency row multiple: shard-divisible always; with a comms
+        # policy also tile-divisible at EVERY geometry the service can
+        # serve (cfg.block_m plus the autotune lattice), so
+        # n_loc % bm == 0 holds after any re-pin and per-batch plans
+        # never degrade on alignment.
+        self._row_mult = self._n_dev
+        if mesh is not None and cfg.comms != "flat":
+            bms = {int(cfg.block_m)}
+            if cfg.autotune_tiles:
+                bms |= {int(bm) for bm, _ in cfg.autotune_lattice}
+            self._row_mult *= int(np.lcm.reduce(sorted(bms)))
         self._n_exec = max(cfg.exec_devices, 1)
         # ONE EWMA model for the service's lifetime: steady-state serving
         # self-tunes — every request's shard timings calibrate the next
@@ -368,18 +404,18 @@ class ERService:
         self._to_global = keyed_idx[perm]
 
         # Resident device-side matrices, one set per job kind: the
-        # filter features (f32) and the verifier's codes and lengths.
-        self._feats_keyed = self._resident(feats[self._to_global])
-        self._feats_all = self._resident(feats)
-        self._feats_null = self._resident(feats[self._null_idx])
+        # filter features (f32; sharded over a mesh) and the verifier's
+        # codes and lengths.
+        self._feats_keyed = self._resident_feats(feats[self._to_global])
+        self._feats_all = self._resident_feats(feats)
+        self._feats_null = self._resident_feats(feats[self._null_idx])
         self._k_codes = self._resident(codes[self._to_global])
         self._k_lens = self._resident(lens[self._to_global])
         self._codes = self._resident(codes)
         self._lens = self._resident(lens)
         self._n_codes = self._resident(codes[self._null_idx])
         self._n_lens = self._resident(lens[self._null_idx])
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        self._sync()
         self.ingest_seconds = time.perf_counter() - t0
 
         # Cumulative query-side BDM (1 traffic partition) — the running
@@ -397,11 +433,49 @@ class ERService:
         # warmup pins a lattice winner.
         self._block_m = cfg.block_m
         self._block_n = cfg.block_n
+        self._dist_scorer = None
+        self._comms_scorer = None
+        self._pin_group = (default_group(self._n_dev)
+                           if cfg.comms == "hierarchical" else 1)
+        self._build_dist_scorer()
+
+    def _sync(self):
+        synchronize(self.mesh.devices.flat if self.mesh is not None
+                    else [self.device])
+
+    def _build_dist_scorer(self):
+        """(Re)build the mesh cross-mode scorer at the current pinned
+        geometry: ONE scorer per geometry for the service's lifetime,
+        built at construction and on an autotune re-pin (during warmup
+        only). Compact (packed-slot decode, no host mask scan)."""
+        if self.mesh is None:
+            return
+        cfg = self.cfg
+        kw = dict(mode="cross", threshold=self._stage1,
+                  block_m=self._block_m, block_n=self._block_n,
+                  impl=cfg.kernel_impl, compact=True,
+                  capacity=cfg.compact_capacity)
+        self._dist_scorer = make_scorer(self.mesh, self.axis, **kw)
+        if cfg.comms != "flat":
+            # The pinned comms scorer. For cross-mode jobs ZERO hops is
+            # exact, not a guess: every catalog tile's a-rows sit inside
+            # one bm-aligned block, and residency padding keeps n_loc a
+            # multiple of every served bm, so a locality-placed tile never
+            # reads outside its own strip. Ring therefore gathers
+            # nothing; hierarchical still assembles its group panel
+            # (g − 1 intra hops) with zero inter-group hops. Plans whose
+            # alignment gates fail degrade to the flat scorer above.
+            self._comms_scorer = make_scorer(
+                self.mesh, self.axis, comms=cfg.comms, hops=0,
+                group=self._pin_group, inter_hops=0, **kw)
 
     def _set_geometry(self, block_m: int, block_n: int):
         """Pin a served tile geometry (autotune warmup only)."""
+        if (block_m, block_n) == (self._block_m, self._block_n):
+            return
         self._block_m = int(block_m)
         self._block_n = int(block_n)
+        self._build_dist_scorer()
 
     @property
     def tile_geometry(self) -> Tuple[int, int]:
@@ -449,6 +523,19 @@ class ERService:
             return None
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
 
+    def _resident_feats(self, feats: np.ndarray):
+        """A feature matrix on the device, or on a mesh zero-padded to the
+        residency row multiple and row-sharded over its devices (tiles'
+        validity windows never reach the padding). Empty matrices stay
+        None."""
+        if self.mesh is None or feats.shape[0] == 0:
+            return self._resident(feats)
+        pad = (-feats.shape[0]) % self._row_mult
+        if pad:
+            feats = np.concatenate(
+                [feats, np.zeros((pad, feats.shape[1]), feats.dtype)], axis=0)
+        return shard_rows(feats, self._grid)
+
     def _bucket(self, nq: int) -> int:
         for b in self._buckets:
             if b >= nq:
@@ -461,16 +548,35 @@ class ERService:
         return buf
 
     def _score(self, feats_a, catalog, q_buf: np.ndarray,
-               ctx: _RequestContext):
+               ctx: _RequestContext, comms_plan=None):
         """Stage 1 with fixed shapes: the catalog is pre-padded to a
         tile_chunk multiple (all-zero rows, which keep nothing), the query
         buffer to a bucket size; the buffer is uploaded here, once per
-        job. With supervision enabled (``cfg.exec_devices`` or an
-        installed fault injector), stage 1 runs through
-        :func:`execute_supervised` instead — per-shard completion
-        records, tile-granular recovery, graceful degradation."""
+        job. On a mesh, tiles route to devices through the compiler's
+        cost-LPT schedule, every device shard pads to ``tile_chunk``
+        tiles, and a resolved ``comms_plan`` swaps in its locality
+        placement and the pinned ring/hierarchical scorer. With
+        supervision enabled (``cfg.exec_devices`` or an installed fault
+        injector), stage 1 runs through :func:`execute_supervised`
+        instead — per-shard completion records, tile-granular recovery,
+        graceful degradation."""
         cfg = self.cfg
         catalog = pad_catalog(catalog, cfg.tile_chunk)
+        if self.mesh is not None:
+            use_comms = (comms_plan is not None
+                         and comms_plan.policy != "flat"
+                         and self._comms_scorer is not None)
+            plan = comms_plan if use_comms else None
+            sched = schedule_tiles(catalog, n_dev=self._n_dev,
+                                   policy=cfg.schedule_policy,
+                                   comms_plan=plan)
+            return execute(
+                catalog, feats_a, q_buf, threshold=self._stage1,
+                impl=cfg.kernel_impl, mesh=self.mesh, axis=self.axis,
+                schedule=sched,
+                scorer=self._comms_scorer if use_comms else self._dist_scorer,
+                comms_plan=plan, chunk_tiles=cfg.tile_chunk,
+                fixed_chunks=True, compact_capacity=cfg.compact_capacity)
         q = torch.from_numpy(q_buf).to(self.device)
         if self._use_supervisor:
             return self._score_supervised(feats_a, catalog, q, ctx)
@@ -491,7 +597,12 @@ class ERService:
         """Install (or clear) a chaos :class:`FaultInjector` — every
         supervised shard call and breaker probe flows through it. Install
         AFTER :meth:`warmup` so warmup traffic doesn't consume script
-        events."""
+        events. The supervisor drives logical shards of one device, so a
+        sharded-index service (``mesh=``) takes none."""
+        if injector is not None and self.mesh is not None:
+            raise ValueError("supervised execution composes with mesh=None "
+                             "only; a sharded-index service takes no fault "
+                             "injector")
         self.fault_injector = injector
 
     def _exec_mask(self) -> np.ndarray:
@@ -707,13 +818,29 @@ class ERService:
                 plan = planner(bdm2, cfg.r)
                 planned += plan.total_pairs
                 cat = lower(plan_to_job(plan), self._block_m, self._block_n)
+                cplan = None
+                if self._comms_scorer is not None:
+                    # Plan on the chunk-padded catalog so the locality
+                    # placement covers every tile the executor sees
+                    # (pad_catalog in _score is then a no-op). Pinned at
+                    # zero hops — see _build_dist_scorer; a degraded plan
+                    # routes the job to the flat scorer.
+                    cat = pad_catalog(cat, cfg.tile_chunk)
+                    cplan = plan_comms(
+                        cat, int(self._feats_keyed.shape[0]), self._n_dev,
+                        policy=cfg.comms, feature_dim=cfg.feature_dim,
+                        self_join=False,
+                        group=(self._pin_group
+                               if cfg.comms == "hierarchical" else None),
+                        pin_hops=0, pin_inter_hops=0)
                 jobs.append(_PlannedJob(
                     feats_a=self._feats_keyed,
                     catalog=cat,
                     q_buf=self._bucket_buffer(feats[q_rows], bucket),
                     codes_a=self._k_codes, lens_a=self._k_lens,
                     codes_b=codes[q_rows], lens_b=lens[q_rows],
-                    map_a=self._to_global, map_b=q_rows))
+                    map_a=self._to_global, map_b=q_rows,
+                    comms_plan=cplan))
 
             # ---- match_⊥, cross-restricted: null queries × corpus ----
             null_q = np.flatnonzero(qb < 0)
@@ -756,7 +883,8 @@ class ERService:
         matches = MatchResponse()
         n_reports = len(ctx.reports)
         for job in pb.jobs:
-            ca, cb = self._score(job.feats_a, job.catalog, job.q_buf, ctx)
+            ca, cb = self._score(job.feats_a, job.catalog, job.q_buf, ctx,
+                                 comms_plan=job.comms_plan)
             ha, hb = verify_pairs(job.codes_a, job.lens_a,
                                   job.codes_b, job.lens_b,
                                   ca, cb, cfg.threshold, device=self.device)
@@ -819,13 +947,14 @@ class ERService:
             self.match(qs, _record=False)
         feats = next(f for f in (self._feats_keyed, self._feats_all)
                      if f is not None)
+        if isinstance(feats, Sharded):
+            feats = feats.blocks[0][0]
         ops.pair_scores_catalog(
             feats, feats,
-            torch.zeros((1, NCOLS), dtype=torch.int32, device=self.device),
+            torch.zeros((1, NCOLS), dtype=torch.int32, device=feats.device),
             threshold=self._stage1, block_m=self._block_m,
             block_n=self._block_n, impl=self.cfg.kernel_impl)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        self._sync()
         return len(self._buckets)
 
     def _tune_job(self, titles: List[str]):

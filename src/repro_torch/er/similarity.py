@@ -11,12 +11,23 @@ the same anti-diagonal-free DP: each DP row update is
 so the sequential insert chain becomes one ``torch.cummin`` over the row;
 a Python loop runs the L row steps, batched over all pairs. Rows past a
 pair's a-length are frozen and the distance is read at its b-length.
+
+``cosine_scores`` and ``two_stage_match`` are the row-paired
+filter-and-verify of the legacy mesh executors (``er/distributed.py``).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["edit_distance", "edit_similarity", "edit_distance_np"]
+__all__ = ["cosine_scores", "edit_distance", "edit_similarity",
+           "two_stage_match", "edit_distance_np"]
+
+
+def cosine_scores(a, b):
+    """(P, d) × (P, d) row-paired f32 dots (features pre-normalized): an
+    elementwise product and a row sum, so no TF32 product is involved."""
+    return (a.to(torch.float32) * b.to(torch.float32)).sum(dim=1)
 
 
 def edit_distance(a_codes, a_len, b_codes, b_len):
@@ -57,3 +68,17 @@ def edit_distance_np(a: str, b: str) -> int:
             dp[j] = min(dp[j] + 1, dp[j - 1] + 1, prev + (a[i - 1] != b[j - 1]))
             prev = cur
     return dp[lb]
+
+
+def two_stage_match(feats_a, feats_b, codes_a, len_a, codes_b, len_b,
+                    threshold: float = 0.8, filter_margin: float = 0.25):
+    """Filter-and-verify for row-paired candidates: stage 1 keeps pairs
+    with cosine >= threshold − margin (compared in f32), stage 2 verifies
+    with exact edit similarity >= threshold. Both stages run on every
+    pair, as the reference's jitted version does. Returns (match bool
+    (P,), scores f32 (P,), the similarity where matched, else 0)."""
+    cos = cosine_scores(feats_a, feats_b)
+    candidate = cos >= float(np.float32(threshold - filter_margin))
+    sim = edit_similarity(codes_a, len_a, codes_b, len_b)
+    match = candidate & (sim >= float(np.float32(threshold)))
+    return match, torch.where(match, sim, torch.zeros((), device=sim.device))

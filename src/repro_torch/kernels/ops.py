@@ -18,7 +18,8 @@ import torch
 from . import flash_attention, grouped_mm, pair_sim, ref
 
 __all__ = ["IMPLS", "resolve_impl", "pair_scores", "pair_scores_catalog",
-           "pair_scores_catalog_compact", "grouped_matmul", "attention",
+           "pair_scores_catalog_compact", "pair_scores_catalog_raw",
+           "grouped_matmul", "attention",
            "launch_counts", "reset_launch_counts"]
 
 IMPLS = ("auto", "cuda", "torch")
@@ -75,6 +76,19 @@ def pair_scores_catalog_compact(a, b, catalog, *, threshold: float = 0.8,
     return pair_sim.pair_scores_catalog_compact(
         a, b, catalog, threshold=threshold, block_m=block_m,
         block_n=block_n, capacity=capacity)
+
+
+def pair_scores_catalog_raw(a, b, catalog, *, block_m: int = 128,
+                            block_n: int = 128, impl: str = "auto"):
+    """UNthresholded, UNmasked (T, bm, bn) f32 tile scores (see
+    ``ref.pair_scores_catalog_raw_ref``): the model axis's partial scores,
+    whose threshold and catalog predicates only apply after the psum.
+    Every ``impl`` runs the plain version (one batched f32 matmul, TF32
+    off), as the JAX package routes every impl to XLA; ``impl`` is still
+    checked against the tensors' device."""
+    resolve_impl(impl, a.device)
+    return ref.pair_scores_catalog_raw_ref(a, b, catalog, block_m=block_m,
+                                           block_n=block_n)
 
 
 def grouped_matmul(x, tile_expert, w, *, block_t: int = 128,

@@ -5,6 +5,8 @@ dispatcher in ``ops.py``, the oracle of the CPU tests, and what
 Ports of ``repro.kernels.ref``'s ``pair_scores_ref`` (one f32 ``einsum``
 with TF32 off, the threshold and the optional strict upper triangle),
 ``pair_scores_catalog_ref``,
+``pair_scores_catalog_raw_ref`` (the model axis's unthresholded partial
+scores, which the reference computes outside any Pallas kernel),
 ``pack_survivor_mask`` and ``pair_scores_catalog_compact_ref`` (a gather of
 the strips, an f32 ``einsum`` with TF32 off, the catalog predicate, and a
 cumsum-plus-scatter pack with a dump slot; the threshold is compared in
@@ -19,7 +21,8 @@ import contextlib
 import numpy as np
 import torch
 
-__all__ = ["pair_scores_ref", "pair_scores_catalog_ref", "pack_survivor_mask",
+__all__ = ["pair_scores_ref", "pair_scores_catalog_ref",
+           "pair_scores_catalog_raw_ref", "pack_survivor_mask",
            "pair_scores_catalog_compact_ref", "grouped_matmul_ref",
            "attention_ref", "band_rel_err", "ATTENTION_BAND_TOL",
            "GROUPED_BAND_TOL",
@@ -86,6 +89,21 @@ def pair_scores_catalog_ref(a, b, catalog, *, threshold: float = 0.8,
     keep = (s >= float(np.float32(threshold))) & catalog_tile_mask(
         entry, gi[:, :, None], gj[:, None, :])
     return keep.to(torch.float32)
+
+
+def pair_scores_catalog_raw_ref(a, b, catalog, *, block_m: int = 128,
+                                block_n: int = 128):
+    """UNthresholded, UNmasked (T, bm, bn) f32 tile scores — the
+    model-parallel partial-score path: a model shard holds a (rows,
+    d/n_model) panel, so its dots are partial sums, and neither the
+    threshold nor the catalog predicates apply until a psum over the model
+    axis combines them. The strips of :func:`pair_scores_catalog_ref` and
+    one ``torch.bmm`` with TF32 off."""
+    cat = catalog.to(torch.int64)
+    sa, _ = _strips(a, cat[:, 0], block_m)
+    sb, _ = _strips(b, cat[:, 1], block_n)
+    with full_precision():
+        return torch.bmm(sa, sb.transpose(1, 2))
 
 
 def pack_survivor_mask(masks, capacity: int):

@@ -556,3 +556,77 @@ def test_supervised_run_er_on_card(cuda):
     tuned = run_er(titles, ERConfig(tune_tiles=True, **base),
                    device="cuda")
     assert tuned.matches == want.matches
+
+
+# ---------------------------------------------------------------------------
+# The mesh on the card: 1 shard and 8 logical shards of cuda:0 against
+# the same mesh of CPU shards
+# ---------------------------------------------------------------------------
+
+def _card_mesh(n_data, n_model=1):
+    from repro_torch.sharding import make_er_mesh
+    return make_er_mesh(n_data, n_model,
+                        devices=["cuda:0"] * (n_data * n_model))
+
+
+def _cpu_mesh(n_data, n_model=1):
+    from repro_torch.sharding import make_er_mesh
+    return make_er_mesh(n_data, n_model, devices=["cpu"] * (n_data * n_model))
+
+
+@pytest.mark.parametrize("shards", [1, 8])
+@pytest.mark.parametrize("strategy", ["basic", "block_split", "pair_range",
+                                      "sorted_neighborhood"])
+def test_run_er_mesh_on_card_equals_cpu(cuda, shards, strategy):
+    ds = make_products(1500, seed=3)
+    titles = list(ds.titles)
+    titles[::97] = ["" for _ in titles[::97]]          # key-less entities
+    cfg = ERConfig(strategy=strategy, r=8, m=4, feature_dim=128, max_len=48,
+                   comms="ring" if shards > 1 else "flat")
+    ops.reset_launch_counts()
+    got = run_er(titles, cfg, mesh=_card_mesh(shards), device="cuda")
+    assert ops.launch_counts()["pair_scores_catalog_compact"] >= shards
+    want = run_er(titles, cfg, mesh=_cpu_mesh(shards), device="cpu")
+    assert got.matches == want.matches
+    assert got.extra.get("comms_fallback") == want.extra.get("comms_fallback")
+
+
+def _near_only(got, want, feats, thr):
+    """Survivor sets differ only on pairs whose f64 score lies within 1e-6
+    of the f32 threshold (chip_smoke.py's NEAR)."""
+    t = float(np.float32(thr))
+    for a, b in got ^ want:
+        s = float(np.dot(feats[a].astype(np.float64),
+                         feats[b].astype(np.float64)))
+        assert abs(s - t) <= 1e-6, (a, b, s)
+
+
+@pytest.mark.parametrize("compact", [True, False])
+@pytest.mark.parametrize("mesh_shape,comms", [
+    ((8, 1), "flat"), ((8, 1), "ring"), ((8, 1), "hierarchical"),
+    ((4, 2), "flat"), ((4, 2), "hierarchical")])
+def test_execute_mesh_on_card_equals_cpu(cuda, mesh_shape, comms, compact):
+    from repro_torch.er.compiler import execute
+
+    rng = np.random.default_rng(7)
+    n, d = 8 * 256, 64
+    cuts = np.sort(rng.choice(np.arange(1, n), 15, replace=False))
+    bids = np.repeat(np.arange(16), np.diff(np.r_[0, cuts, n]))
+    cat = lower(plan_to_job(plan_pair_range(
+        compute_bdm(bids, np.zeros(n, np.int64), 16, 1), 8)), 64, 64)
+    feats = rng.standard_normal((n, d)).astype(np.float32)
+    feats /= np.linalg.norm(feats, axis=1, keepdims=True)
+    model_axis = "model" if mesh_shape[1] > 1 else None
+    kw = dict(threshold=0.1, comms=comms, compact=compact,
+              model_axis=model_axis)
+    ops.reset_launch_counts()
+    got = execute(cat, feats, mesh=_card_mesh(*mesh_shape), **kw)
+    launched = ops.launch_counts()
+    want = execute(cat, feats, mesh=_cpu_mesh(*mesh_shape), **kw)
+    if model_axis is None:
+        kernel = ("pair_scores_catalog_compact" if compact
+                  else "pair_scores_catalog")
+        assert launched[kernel] > 0
+    to_set = (lambda ab: set(zip(ab[0].tolist(), ab[1].tolist())))
+    assert to_set(want)
+    _near_only(to_set(got), to_set(want), feats, 0.1)

@@ -13,7 +13,7 @@ pytest.importorskip("jax")
 import repro.er as jer  # noqa: E402
 import repro_torch.er as ter  # noqa: E402
 from repro_torch.er.compiler import stage1_stats  # noqa: E402
-from torch_parity import keyless, skewed_corpus  # noqa: E402
+from torch_parity import cpu_mesh, keyless, skewed_corpus  # noqa: E402
 
 BLOCKED = ("basic", "block_split", "pair_range")
 BASE = dict(r=8, m=4, feature_dim=128, max_len=48, block_m=32, block_n=64)
@@ -76,25 +76,21 @@ def test_capacity_four_forces_the_exact_mask_fallback(skewed):
 
 
 @pytest.mark.parametrize("option", [
-    dict(mesh=object()),
+    dict(mesh=cpu_mesh(2)),
     dict(fault_injector=ter.FaultInjector(ter.FaultScript((), 1))),
     dict(feedback=ter.EwmaCostModel(1)),
     dict(config=dict(supervised_devices=2)),
     dict(config=dict(tune_tiles=True)), dict(config=dict(comms="ring"))])
 def test_later_slices_raise_not_implemented(option):
-    """The mesh slice's options (mesh=, non-flat comms) raise, naming ROADMAP
-    Queue 1 item 10; the options of the tuning, feedback and supervisor
-    slices, ported since, run and find the pair."""
+    """The options of the later slices — the mesh (mesh=, non-flat comms,
+    which is ignored without a mesh, as in the JAX package), tuning,
+    feedback and the supervisor — once raised naming their ROADMAP
+    item; every one is ported now, runs and finds the pair."""
     kwargs = dict(option)
     cfg = ter.ERConfig(**kwargs.pop("config", {}))
     titles = ["abc def", "abc deg"]
-    if "mesh" in kwargs or cfg.comms != "flat":
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1: .*item 10"):
-            ter.run_er(titles, cfg, device="cpu", **kwargs)
-    else:
-        res = ter.run_er(titles, cfg, device="cpu", **kwargs)
-        assert res.matches == {(0, 1)} and res.coverage == 1.0
+    res = ter.run_er(titles, cfg, device="cpu", **kwargs)
+    assert res.matches == {(0, 1)} and res.coverage == 1.0
 
 
 def test_entry_points_default_to_cuda_and_never_fall_back():

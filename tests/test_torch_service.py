@@ -141,10 +141,11 @@ def test_config_mapping_and_refusals():
         ERService(CORPUS[:10], _cfg(kernel_impl="cuda"), device="cpu")
     with pytest.raises(ValueError):
         ERService(CORPUS[:10], _cfg(comms="bogus"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ERService(CORPUS[:10], _cfg(), mesh=object(), device="cpu")
+    mesh = torch_parity.cpu_mesh(2)            # the sharded index serves
+    sharded = ERService(CORPUS, _cfg(), mesh=mesh, device="cpu")
+    assert set(sharded.match(QUERIES)) == set(_svc().match(QUERIES))
     with pytest.raises(ValueError):            # supervised refuses a mesh
-        ERService(CORPUS[:10], _cfg(exec_devices=2), mesh=object(),
+        ERService(CORPUS[:10], _cfg(exec_devices=2), mesh=mesh,
                   device="cpu")
     # comms is ignored without a mesh, as in the JAX package
     ring = ERService(CORPUS, _cfg(comms="ring"), device="cpu")

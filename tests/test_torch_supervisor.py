@@ -282,6 +282,8 @@ def test_run_er_supervised_equals_reference(strategy):
     with pytest.raises(ValueError):
         run_er(titles, ERConfig(**{**kw, "executor": "reference"}),
                device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        run_er(titles, ERConfig(**{**kw, "supervised_devices": 0}),
-               mesh=object(), device="cpu")
+    mesh = torch_parity.cpu_mesh(4)
+    assert run_er(titles, ERConfig(**{**kw, "supervised_devices": 0}),
+                  mesh=mesh, device="cpu").matches == got.matches
+    with pytest.raises(ValueError, match="mesh"):   # not both at once
+        run_er(titles, ERConfig(**kw), mesh=mesh, device="cpu")

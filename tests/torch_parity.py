@@ -141,3 +141,90 @@ def lm_port(cfg, tree, batch, nxt):
     assert cache["pos"] == LM_S + prefix + 1
     toks = generate(model, cfg, batch, max_new_tokens=LM_NEW, device="cpu")
     return last.numpy(), step.numpy(), toks.numpy()
+
+
+# ---------------------------------------------------------------------------
+# Mesh parity (tests/test_torch_mesh*.py, tests/test_torch_distributed.py)
+# ---------------------------------------------------------------------------
+
+JAX_MESH_DEVICES = 16
+
+
+def jax_mesh_reference(script: str, out_path) -> dict:
+    """Run ``script`` — reference code that builds its meshes from
+    ``JAX_MESH_DEVICES`` simulated host devices and ``np.savez``-es its
+    results to the path in ``sys.argv[1]`` — in a subprocess (the device
+    count must be set before JAX starts; the test process has one device)
+    and return the saved arrays."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ)
+    env["XLA_FLAGS"] = (f"--xla_force_host_platform_device_count="
+                        f"{JAX_MESH_DEVICES}")
+    env["JAX_PLATFORMS"] = "cpu"
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(root, "src"), os.path.join(root, "tests")])
+    proc = subprocess.run([sys.executable, "-c", script, str(out_path)],
+                          env=env, capture_output=True, text=True,
+                          timeout=600, cwd=root)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    with np.load(out_path, allow_pickle=False) as z:
+        return {k: z[k] for k in z.files}
+
+
+def cpu_mesh(n_data: int, n_model: int = 1):
+    """The port's mesh of ``n_data × n_model`` logical CPU shards."""
+    from repro_torch.sharding import make_er_mesh
+    return make_er_mesh(n_data, n_model, devices=["cpu"] * (n_data * n_model))
+
+
+def pair_set(rows_a, rows_b) -> set:
+    return set(zip(np.asarray(rows_a).tolist(), np.asarray(rows_b).tolist()))
+
+
+def near_threshold_flips(got: set, want: set, feats_a, feats_b, thr,
+                         near: float = 1e-6) -> list:
+    """The pairs in one set only; raises unless each one's f64 score lies
+    within ``near`` of the f32 threshold."""
+    flips = sorted(got ^ want)
+    t = float(np.float32(thr))
+    for a, b in flips:
+        s = float(np.dot(np.asarray(feats_a[a], np.float64),
+                         np.asarray(feats_b[b], np.float64)))
+        assert abs(s - t) <= near, (a, b, s, t)
+    return flips
+
+
+LEGACY_N_DEV = 8
+
+
+def legacy_mesh_inputs(mod_core, mod_er):
+    """tests/test_distributed_er.py's blocked inputs, built with one
+    package's numpy code: (feats, codes, lens, plan, rows) in the
+    blocked layout, rows being the Basic plan's per-reducer pairs."""
+    ds = mod_er.make_products(1024, seed=5)
+    bid, _ = mod_er.prefix_block_ids(ds.titles, ds.prefix_len)
+    n = ds.n - ds.n % LEGACY_N_DEV
+    titles, bid = list(ds.titles[:n]), bid[:n]
+    num_blocks = int(bid.max()) + 1
+    part = np.repeat(np.arange(LEGACY_N_DEV), n // LEGACY_N_DEV)
+    bdm = mod_core.compute_bdm(bid, part, num_blocks, LEGACY_N_DEV)
+    codes, lens = mod_er.encode_titles(titles, 48)
+    feats = mod_er.ngram_features(codes, dim=128, lengths=lens)
+    plan = mod_core.plan_pair_range(bdm, LEGACY_N_DEV)
+    perm, estart = mod_core.blocked_layout(
+        bid, mod_core.entity_indices(bid, part, bdm), plan.block_sizes)
+    bplan = mod_core.plan_basic(bdm, LEGACY_N_DEV)
+    rows = [(np.zeros(0, np.int64), np.zeros(0, np.int64))
+            for _ in range(LEGACY_N_DEV)]
+    for k_blk in range(num_blocks):
+        if plan.block_sizes[k_blk] < 2:
+            continue
+        x, y = np.triu_indices(int(plan.block_sizes[k_blk]), k=1)
+        r = int(bplan.block_reducer[k_blk])
+        rows[r] = (np.concatenate([rows[r][0], estart[k_blk] + x]),
+                   np.concatenate([rows[r][1], estart[k_blk] + y]))
+    return feats[perm], codes[perm], lens[perm], plan, rows
