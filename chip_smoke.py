@@ -114,8 +114,36 @@ LM serving, granite-moe-1b-a400m (``repro_torch.serve.generate``):
                2): back-to-back and device times (``torch.profiler``) and
                the host microseconds of one call.
 
+The eighth slice (training, and the ssm / hybrid / audio families):
+
+  T-a train  — three train steps (``repro_torch.train.make_train_step``,
+               AdamW lr 1e-3) on the card against the same three on the
+               CPU from the same weights, f32, TF32 off: smollm-360m and
+               granite-moe-1b-a400m (gshard: the router aux loss's
+               gradient) at full width, 2 layers, B 2 x S 128 (metrics
+               rtol 1e-4, aux atol 1e-6, params atol 1e-5);
+  T-b slice  — smollm-360m at full width and depth, bf16, remat, random
+               weights from seed 0, through ``repro_torch.launch.train``:
+               40 steps of 8 x 1,024 tokens with async checkpoints every
+               20, every loss finite and the mean of the last 5 below the
+               first; the checkpoint of step 40 equal to the run's state in
+               memory bit for bit; step ms, tokens/s, peak memory and one
+               step's device busy share (``torch.profiler``); then
+               ``main(--steps 50)``, which must resume from step 40;
+  LM-f families — zamba2-2.7b on the flash route (head dim 80): 12 layers
+               f32 against the plain route (prefill + 4 decode steps, LM-b's
+               tolerance, one flash launch per super-block), then full
+               width and depth, bf16, ``generate`` on 2 x 1,024 tokens (8
+               new; 9 flash launches, the kernel-vs-plain prefill logits);
+               rwkv6-7b: 2 layers f32 on the card against the CPU, then
+               full bf16 ``generate`` on 2 x 512 (8 new); whisper-base on
+               the plain route, full bf16, 2 x (1,500 stub frames + 64
+               tokens) (8 new), and its kernel route raising ValueError.
+               Prefill s, decode ms per step, tokens/s, peak memory; two
+               greedy runs must agree.
+
 Phases run in the order 1-6, D, ER-t, ER-f, ER-s, ER-m, LM-a, LM-b, LM-c,
-LM-e, LM-d, then 7, the
+LM-e, LM-d, T-a, T-b, LM-f, then 7, the
 summary. The last two lines of standard output are the kernel
 summary and ``{"ok": true, "device": {...}}``. Without a card, or without the repo
 beside it, the script exits non-zero and prints no result.
@@ -1532,17 +1560,18 @@ def lm_kernels_phase(torch, np):
     return errs, cases
 
 
-def _prefill_and_decode(torch, model, cfg, tokens, steps):
+def _prefill_and_decode(torch, model, cfg, tokens, steps, device="cuda"):
     """prefill + ``steps`` greedy decode steps through the serving entry
     points; returns (logits per step (B, V) f32, tokens per step)."""
     from repro_torch.models import get_model
     from repro_torch.serve import make_decode_step, make_prefill
 
     b, s = tokens.shape
-    cache = get_model(cfg).init_cache(cfg, b, s + steps + 1)
-    logits, cache = make_prefill(cfg)(model, {"tokens": tokens}, cache)
+    cache = get_model(cfg).init_cache(cfg, b, s + steps + 1, device=device)
+    logits, cache = make_prefill(cfg, device=device)(
+        model, {"tokens": tokens}, cache)
     out, toks = [logits[:, -1].float()], []
-    decode = make_decode_step(cfg)
+    decode = make_decode_step(cfg, device=device)
     for _ in range(steps):
         toks.append(out[-1].argmax(-1))
         logits, cache = decode(model, toks[-1][:, None], cache)
@@ -2061,6 +2090,391 @@ def lm_timing_phase(torch, np, cfg, model, yardstick_lib):
 
 
 # ---------------------------------------------------------------------------
+# T: training (repro_torch.train, repro_torch.launch.train)
+# ---------------------------------------------------------------------------
+
+SMOLLM = "smollm-360m"
+T_A_RUN = (2, 128, 3)       # batch, seq, steps (tests/test_torch_train_step.py)
+T_A_TOL = dict(metrics_rtol=1e-4, aux_atol=1e-6, params_atol=1e-5)
+T_B_ARGS = ["--arch", SMOLLM, "--batch", "8", "--seq", "1024",
+            "--ckpt-every", "20", "--log-every", "1", "--seed", "0"]
+T_B_STEPS = (40, 50)        # the first run, then the resumed one
+
+
+def _train_steps(torch, model, cfg, batch, steps):
+    """``steps`` train steps (AdamW lr 1e-3) from a fresh optimizer state:
+    (metrics per step as floats, the optimizer state)."""
+    from repro_torch.train import adamw_init, make_train_step
+    from repro_torch.train.optimizer import AdamWConfig
+
+    step = make_train_step(cfg, AdamWConfig(lr=1e-3))
+    opt = adamw_init(model, AdamWConfig(lr=1e-3))
+    out = []
+    for _ in range(steps):
+        model, opt, m = step(model, opt, batch)
+        out.append({k: float(v) for k, v in m.items()})
+    return out, opt
+
+
+def train_check_phase(torch, np):
+    """T-a: three train steps on the card against the same three on the
+    CPU from the same weights, f32 with TF32 off: smollm-360m and
+    granite-moe-1b-a400m (gshard, so the router aux loss's gradient runs)
+    at full width, 2 layers, ``remat`` on (the full configs')."""
+    from repro_torch.models import get_model
+
+    phase("T-a train steps on the card vs the CPU: smollm-360m and "
+          "granite-moe-1b-a400m (gshard) at full width, 2 layers, float32")
+    b, s, steps = T_A_RUN
+    worst = {}
+    for arch in (SMOLLM, GRANITE):
+        cfg, card = granite(torch, arch, n_layers=2, param_dtype="float32",
+                            compute_dtype="float32")
+        cpu = get_model(cfg).empty(cfg, device="cpu")
+        cpu.load_state_dict(card.state_dict())
+        rng = np.random.default_rng(5)
+        batch = {"tokens": rng.integers(0, cfg.vocab, (b, s)),
+                 "labels": rng.integers(0, cfg.vocab, (b, s))}
+        batch["labels"][0, :5] = -100
+        t0 = time.perf_counter()
+        got, _ = _train_steps(torch, card, cfg, batch, steps)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want, _ = _train_steps(torch, cpu, cfg, batch, steps)
+        cpu_s = time.perf_counter() - t0
+        rel = max(abs(g[k] - w[k]) / abs(w[k]) for g, w in zip(got, want)
+                  for k in ("loss", "xent", "grad_norm", "lr"))
+        aux = max(abs(g["aux"] - w["aux"]) for g, w in zip(got, want))
+        pdiff = max((a.cpu() - c).abs().max().item() for a, c in zip(
+            card.parameters(), cpu.parameters()))
+        log(f"{arch}: {steps} steps of B={b} x S={s}: losses card "
+            f"{[g['loss'] for g in got]} / CPU {[w['loss'] for w in want]}; "
+            f"aux {[g['aux'] for g in got]}; grad_norm "
+            f"{[g['grad_norm'] for g in got]}; max rel diff of loss / xent /"
+            f" grad_norm / lr {rel:.3e} (rtol {T_A_TOL['metrics_rtol']}), "
+            f"max |aux diff| {aux:.3e} (atol {T_A_TOL['aux_atol']}), max "
+            f"|param diff| {pdiff:.3e} (atol {T_A_TOL['params_atol']}); "
+            f"card {card_s:.2f} s, CPU {cpu_s:.2f} s")
+        if not (rel <= T_A_TOL["metrics_rtol"] and aux <= T_A_TOL["aux_atol"]
+                and pdiff <= T_A_TOL["params_atol"]):
+            raise AssertionError(f"T-a {arch}: the card's train steps differ "
+                                 "from the CPU's")
+        if cfg.family == "moe" and not got[0]["aux"] > 0:
+            raise AssertionError("T-a: the MoE aux loss is 0")
+        worst[arch] = dict(metrics_rel=rel, aux_abs=aux, params_abs=pdiff)
+        del card, cpu
+    torch.cuda.empty_cache()
+    return worst
+
+
+def train_slice_phase(torch, np):
+    """T-b: smollm-360m at full width and depth, bf16, ``remat``, random
+    weights from seed 0, through the launcher (``launch.train``): 40 steps of
+    8 x 1,024 tokens with async checkpoints every 20 into a temp dir, then
+    ``main`` again to 50, which must resume from step 40; the checkpoint
+    of step 40 must equal the first run's params and moments bit for bit.
+    Step ms, tokens/s, peak memory, and one step's device busy share."""
+    import io
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch
+    from repro_torch.train import make_train_step
+    from repro_torch.train.checkpoint import latest_step, restore
+    from repro_torch.train.optimizer import AdamWConfig
+
+    phase("T-b the slice: launch.train, smollm-360m full width and depth, "
+          "bf16, remat, 40 steps of 8 x 1024, checkpoints every 20, then "
+          "resume to 50")
+    first, second = T_B_STEPS
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as ckpt:
+        argv = T_B_ARGS + ["--ckpt-dir", ckpt]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = launch.train(launch.parse_args(argv + ["--steps", str(first)]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        cfg, model, losses = res["cfg"], res["model"], res["losses"]
+        n_params = sum(p.numel() for p in model.parameters())
+        if cfg != get_config(SMOLLM) or not cfg.remat \
+                or cfg.compute_dtype != "bfloat16":
+            raise AssertionError(f"T-b runs {cfg}, not the full config")
+        if len(losses) != first or not all(np.isfinite(losses)):
+            raise AssertionError(f"T-b losses: {losses}")
+        if not np.mean(losses[-5:]) < losses[0]:
+            raise AssertionError(f"T-b: the loss did not fall: {losses}")
+        steady = [dt for i, dt in res["step_s"] if i > 5]
+        step_ms = float(np.median(steady)) * 1e3
+        tok_s = res["tokens_per_step"] / (step_ms * 1e-3)
+        flops = 6.0 * n_params * res["tokens_per_step"]
+        log(f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} / "
+            f"{cfg.n_kv_heads} heads, vocab {cfg.vocab}: {n_params:,} "
+            f"parameters; {first} steps in {wall:.2f} s (model init and "
+            f"data included); losses {losses[0]:.4f} -> {losses[-1]:.4f} "
+            f"(mean of the last 5 {np.mean(losses[-5:]):.4f}); median step "
+            f"after step 5: {step_ms:.2f} ms = {tok_s:,.0f} tokens/s "
+            f"({flops / 1e12:.1f} TFLOP a step at 6·N·tokens -> "
+            f"{flops / (step_ms * 1e-3) / 1e12:.1f} TFLOP/s, "
+            f"{flops / (step_ms * 1e-3) / PEAK_BF16_FLOPS:.1%} of the bf16 "
+            f"peak); peak memory {peak / 2**30:.2f} GiB")
+        if latest_step(ckpt) != first:
+            raise AssertionError(f"T-b: latest checkpoint "
+                                 f"{latest_step(ckpt)}, not {first}")
+        state, _ = restore(ckpt, step=first, device="cuda")
+        for name, p in model.named_parameters():
+            if not torch.equal(state["params"][name], p):
+                raise AssertionError(f"T-b: checkpointed {name} differs")
+        for key in ("m", "v"):
+            for name, t in res["opt_state"][key].items():
+                if not torch.equal(state["opt"][key][name], t):
+                    raise AssertionError(f"T-b: checkpointed {key}.{name} "
+                                         "differs")
+        log(f"checkpoint of step {first}: every parameter and both "
+            f"moments equal the run's in memory bit for bit "
+            f"({len(state['params'])} parameters)")
+        del state
+        # one step's device busy share (torch.profiler), on the in-memory
+        # state after the run
+        step = make_train_step(cfg, AdamWConfig(lr=3e-3), total_steps=first)
+        batch = {"tokens": torch.randint(0, cfg.vocab, (8, 1024),
+                                         device="cuda"),
+                 "labels": torch.randint(0, cfg.vocab, (8, 1024),
+                                         device="cuda")}
+        opt = res["opt_state"]
+        step(model, opt, batch)
+        pwall, cats = device_breakdown(
+            torch, lambda: step(model, opt, batch), kernels=())
+        busy = cats["other"]
+        top = sorted(cats["other_by_name"].items(), key=lambda kv: -kv[1])[:6]
+        if busy > 0:
+            log(f"one train step under torch.profiler: wall {pwall * 1e3:.2f}"
+                f" ms, device busy {busy * 1e3:.2f} ms ({busy / pwall:.1%}; "
+                f"idle {1 - busy / pwall:.1%}); {cats['device_events']} "
+                "kernels and copies; largest (ms): " + "; ".join(
+                    f"{n} {sec * 1e3:.2f}" for n, sec in top))
+        else:
+            log("one train step under torch.profiler: the profiler saw no "
+                "device time (busy share not measured)")
+        del model, opt, res
+        torch.cuda.empty_cache()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = launch.main(argv + ["--steps", str(second)])
+        resume_s = time.perf_counter() - t0
+        text = out.getvalue()
+        log("  " + "\n  ".join(text.strip().splitlines()[:3] + ["..."]
+                               + text.strip().splitlines()[-2:]))
+        if rc != 0 or f"resumed from step {first}" not in text \
+                or f"step {second:5d}  loss" not in text \
+                or latest_step(ckpt) != second:
+            raise AssertionError(f"T-b: main did not resume from step "
+                                 f"{first} to {second} (rc {rc})")
+        log(f"main(--steps {second}): rc 0, resumed from step {first}, "
+            f"{second - first} more steps in {resume_s:.2f} s")
+    return dict(step_ms=step_ms, tokens_per_s=tok_s, peak_bytes=peak,
+                loss_first=losses[0], loss_last5=float(np.mean(losses[-5:])),
+                busy_share=busy / pwall if busy > 0 else None)
+
+
+# ---------------------------------------------------------------------------
+# LM-f: the ssm / hybrid / audio families
+# ---------------------------------------------------------------------------
+
+ZAMBA2 = "zamba2-2.7b"
+RWKV6 = "rwkv6-7b"
+WHISPER = "whisper-base"
+LM_F_RUNS = {ZAMBA2: (2, 1024, 8), RWKV6: (2, 512, 8), WHISPER: (2, 64, 8)}
+
+
+def _serve_round(torch, cfg, model, batch, new, label):
+    """generate (cold, launches counted), prefill alone then ``new`` - 1
+    greedy decode steps on its cache (each timed), generate again (the
+    same tokens): the serving numbers of one configuration."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import get_model
+    from repro_torch.serve import generate, make_decode_step, make_prefill
+
+    b, s = batch["tokens"].shape
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = generate(model, cfg, batch, new)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if out.shape != (b, new) or not bool(
+            ((out >= 0) & (out < cfg.vocab)).all()):
+        raise AssertionError(f"{label}: generate returned "
+                             f"{tuple(out.shape)} or ids outside the vocab")
+    cache = get_model(cfg).init_cache(cfg, b, s + new)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _ = make_prefill(cfg)(model, batch, cache)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{label}: non-finite prefill logits")
+    decode = make_decode_step(cfg)
+    tok = logits[:, -1].argmax(-1)[:, None]
+    t0 = time.perf_counter()
+    for _ in range(new - 1):
+        step_logits, cache = decode(model, tok, cache)
+        tok = step_logits[:, -1].argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) / max(new - 1, 1) * 1e3
+    t0 = time.perf_counter()
+    again = generate(model, cfg, batch, new)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    if not torch.equal(out, again):
+        raise AssertionError(f"{label}: two greedy runs gave different "
+                             "tokens")
+    log(f"{label} B={b} x {s} tokens, {new} new: launches "
+        f"{ {k: v for k, v in launches.items() if v} }; first generate "
+        f"{first_s:.3f} s (cold); prefill {prefill_s:.3f} s; decode "
+        f"{decode_ms:.2f} ms/token-step; generate {gen_s:.3f} s "
+        f"({b * new / gen_s:.1f} tokens/s, {b * s / prefill_s:,.0f} prompt "
+        f"tokens/s in prefill); peak memory {peak / 2**30:.2f} GiB; "
+        f"tokens[0] {out[0].tolist()}; repeat run equal")
+    return logits, dict(b=b, s=s, new=new, prefill_s=prefill_s,
+                        generate_s=gen_s, decode_ms=decode_ms,
+                        tokens_per_s=b * new / gen_s, peak_bytes=peak,
+                        launches=launches)
+
+
+def _params_line(cfg, model):
+    n = sum(p.numel() for p in model.parameters())
+    return (f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+            f"vocab {cfg.vocab}: {n:,} parameters ({n * 2 / 1e9:.2f} GB "
+            "bf16)")
+
+
+def lm_families_phase(torch, np):
+    """LM-f: zamba2-2.7b on the flash route (12 layers f32 against the
+    plain route, then full depth bf16 through ``generate``), rwkv6-7b (2
+    layers f32 on the card against the CPU, then full bf16) and
+    whisper-base (plain route, full bf16; the kernel route raises). Returns
+    (the flash launches of the zamba2 ``generate``, the rows)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import get_model
+    from repro_torch.serve import generate, make_prefill
+
+    phase("LM-f the ssm / hybrid / audio families: zamba2-2.7b (flash "
+          "route, head dim 80), rwkv6-7b, whisper-base; random weights, "
+          "seed 0")
+    rows = {}
+    rng = np.random.default_rng(7)
+
+    # zamba2, 12 layers (two super-blocks), f32: kernel route vs plain
+    kern, model = granite(torch, ZAMBA2, n_layers=12, param_dtype="float32",
+                          compute_dtype="float32", attn_impl="kernel")
+    plain = kern.replace(attn_impl="plain", kernel_impl="torch")
+    tokens = torch.from_numpy(rng.integers(0, kern.vocab, (2, 256))).cuda()
+    ops.reset_launch_counts()
+    lk, tk = _prefill_and_decode(torch, model, kern, tokens, 4)
+    counts = ops.launch_counts()
+    lp, tpl = _prefill_and_decode(torch, model, plain, tokens, 4)
+    worst = max((a - b).abs().max().item() for a, b in zip(lk, lp))
+    n_sup = kern.n_layers // kern.shared_attn_every
+    if counts["flash_attention"] != n_sup or not all(
+            torch.allclose(a, b, **LM_B_TOL) for a, b in zip(lk, lp)) \
+            or not all(torch.equal(a, b) for a, b in zip(tk, tpl)):
+        raise AssertionError(f"LM-f zamba2 12 layers f32: flash launches "
+                             f"{counts['flash_attention']} (want {n_sup}), "
+                             f"max |logit diff| {worst}")
+    log(f"zamba2 12 layers f32, B=2 S=256: kernel route (flash launches "
+        f"{counts['flash_attention']}, one per super-block) vs plain route: "
+        f"prefill + 4 decode steps max |logit diff| {worst:.3e} within atol "
+        f"{LM_B_TOL['atol']} / rtol {LM_B_TOL['rtol']}; greedy tokens equal "
+        f"{[t.tolist() for t in tk]}")
+    rows["zamba2_f32_max_diff"] = worst
+    del model
+    torch.cuda.empty_cache()
+
+    cfg, model = granite(torch, ZAMBA2, attn_impl="kernel")
+    log(_params_line(cfg, model) + f"; {cfg.n_heads} heads of {cfg.hd}, "
+        f"shared block every {cfg.shared_attn_every}")
+    b, s, new = LM_F_RUNS[ZAMBA2]
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab, (b, s))).cuda()}
+    logits, rows[ZAMBA2] = _serve_round(torch, cfg, model, batch, new,
+                                        "zamba2-2.7b")
+    launches = rows[ZAMBA2]["launches"]["flash_attention"]
+    if launches != cfg.n_layers // cfg.shared_attn_every:
+        raise AssertionError(f"zamba2 generate: {launches} flash launches, "
+                             "not one per super-block")
+    plain = cfg.replace(attn_impl="plain", kernel_impl="torch")
+    ref_logits, _ = make_prefill(plain)(
+        model, batch, get_model(plain).init_cache(plain, b, s + 1))
+    diff = (logits.float() - ref_logits.float()).abs().max().item()
+    agree = (logits.float().argmax(-1) == ref_logits.float().argmax(-1)
+             ).float().mean().item()
+    log(f"zamba2 full depth, bf16: kernel vs plain-route prefill logits max "
+        f"|diff| {diff:.3e} (informative; logit scale "
+        f"{ref_logits.float().abs().max().item():.2f}); next-token argmax "
+        f"agrees on {agree:.0%} of the prompts")
+    rows[ZAMBA2]["plain_logit_diff"] = diff
+    del model
+    torch.cuda.empty_cache()
+
+    # rwkv6, 2 layers f32 at full width: the card against the CPU
+    cfg2, card = granite(torch, RWKV6, n_layers=2, param_dtype="float32",
+                         compute_dtype="float32")
+    cpu = get_model(cfg2).empty(cfg2, device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    tokens = torch.from_numpy(rng.integers(0, cfg2.vocab, (2, 64)))
+    lc, tc = _prefill_and_decode(torch, card, cfg2, tokens.cuda(), 4)
+    lh, th = _prefill_and_decode(torch, cpu, cfg2, tokens, 4, device="cpu")
+    worst = max((a.cpu() - b).abs().max().item() for a, b in zip(lc, lh))
+    if not all(torch.allclose(a.cpu(), b, **LM_B_TOL) for a, b in zip(lc, lh)) \
+            or not all(torch.equal(a.cpu(), b) for a, b in zip(tc, th)):
+        raise AssertionError(f"LM-f rwkv6 2 layers f32: card and CPU differ "
+                             f"by {worst}")
+    log(f"rwkv6 2 layers f32 full width, B=2 S=64: card vs CPU prefill + 4 "
+        f"decode steps max |logit diff| {worst:.3e} within atol "
+        f"{LM_B_TOL['atol']} / rtol {LM_B_TOL['rtol']}; greedy tokens equal")
+    rows["rwkv6_f32_max_diff"] = worst
+    del card, cpu
+    torch.cuda.empty_cache()
+
+    cfg, model = granite(torch, RWKV6)
+    log(_params_line(cfg, model) + f"; {cfg.n_heads} WKV heads of {cfg.hd}")
+    b, s, new = LM_F_RUNS[RWKV6]
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab, (b, s))).cuda()}
+    _, rows[RWKV6] = _serve_round(torch, cfg, model, batch, new, "rwkv6-7b")
+    del model
+    torch.cuda.empty_cache()
+
+    cfg, model = granite(torch, WHISPER)
+    log(_params_line(cfg, model) + f" + {cfg.n_encoder_layers} encoder "
+        f"layers; {cfg.n_audio_frames} stub frames")
+    b, s, new = LM_F_RUNS[WHISPER]
+    batch = {"tokens": torch.from_numpy(
+                 rng.integers(0, cfg.vocab, (b, s))).cuda(),
+             "frames": torch.from_numpy(rng.standard_normal(
+                 (b, cfg.n_audio_frames, cfg.d_model)).astype(
+                     np.float32)).cuda()}
+    _, rows[WHISPER] = _serve_round(torch, cfg, model, batch, new,
+                                    "whisper-base (plain route)")
+    try:
+        generate(model, cfg.replace(attn_impl="kernel"), batch, 2)
+    except ValueError as e:
+        log(f"whisper on the kernel route raises ValueError: {e}")
+    else:
+        raise AssertionError("whisper on the kernel route did not raise")
+    del model
+    torch.cuda.empty_cache()
+    return launches, rows
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not (SRC / "repro_torch" / "csrc" / "pair_sim.cu").is_file():
@@ -2096,6 +2510,11 @@ def main() -> int:
     cfg, model, lm_launches, _ = lm_slice_phase(torch, np)
     vlm_launches, vlm_row = lm_vlm_phase(torch, np)
     lm_times = lm_timing_phase(torch, np, cfg, model, yardstick_lib)
+    del model
+    torch.cuda.empty_cache()
+    train_check_phase(torch, np)
+    train_slice_phase(torch, np)
+    lm_f_launches, _ = lm_families_phase(torch, np)
 
     phase("7 summary")
     from repro_torch.kernels.ref import ATTENTION_BAND_TOL, GROUPED_BAND_TOL
@@ -2153,10 +2572,12 @@ def main() -> int:
         replaces="src/repro/kernels/flash_attention.py:125",
         launches=lm_launches["flash_attention"],
         launches_phi3=vlm_launches["flash_attention"],
+        launches_zamba2=lm_f_launches,
         path="LM-c generate, granite-moe prefill (attn_impl=kernel); "
              "launches_phi3: LM-e generate, phi-3-vision prefill (head dim "
-             "96); times at granite's prefill shape, phi3_* at "
-             "phi-3-vision's",
+             "96); launches_zamba2: LM-f generate, zamba2-2.7b prefill "
+             "(head dim 80, one per super-block); times at granite's "
+             "prefill shape, phi3_* at phi-3-vision's",
         max_abs_err=lm_errs["flash_attention"],
         max_band_rel_err=lm_errs["flash_band"],
         compared_cases=lm_cases["flash_attention"],

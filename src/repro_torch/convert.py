@@ -16,8 +16,10 @@ plain JSON data) passes across as it is.
 For the LM families, :func:`config_from` copies a reference
 ``ModelConfig`` (any object with its fields) into the port's, mapping the
 attention route's names (``"xla"`` → ``"plain"``, ``"pallas"`` →
-``"kernel"``), and :func:`model_params_from` turns the reference's params
-pytree, as numpy arrays, into the port's ``LanguageModel``.
+``"kernel"``), :func:`model_params_from` turns the reference's params
+pytree, as numpy arrays, into the port's ``LanguageModel`` (every
+family), and :func:`opt_state_from` turns the reference's AdamW state
+into the port's, so a train step can continue from it.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ from .er.compiler.ir import NCOLS, TileCatalog
 from .models.config import ModelConfig
 
 __all__ = ["to_device", "catalog_from", "service_config_from",
-           "config_from", "model_params_from"]
+           "config_from", "model_params_from", "opt_state_from"]
 
 _KINDS = {"f": torch.float32, "i": torch.int32, "u": torch.uint8}
 
@@ -103,40 +105,96 @@ def _tensor(arr, dtype, device):
     return torch.from_numpy(np.array(arr)).to(device, dtype)  # a writable copy
 
 
+def _named_arrays(tree, model) -> dict:
+    """The arrays of a params-shaped ``tree`` (numpy leaves) by the port's
+    parameter names. A subtree whose name is a stack of ``model`` (an
+    ``nn.ModuleList``: ``layers``, zamba2's ``blocks``, whisper's
+    ``enc_layers`` / ``dec_layers``) has stacked leaves: their leading axes
+    (``(n,)``, or zamba2's ``(n_super, every)``) are flattened and
+    unstacked into one node each. Raises if a name or shape does not
+    match, or a parameter is missing."""
+    params = dict(model.named_parameters())
+    out = {}
+
+    def put(prefix, sub, stack=None):
+        for name, val in sub.items():
+            path = f"{prefix}{name}"
+            if isinstance(val, dict):
+                put(path + ".", val, stack)
+                continue
+            arr = np.asarray(val)
+            if stack is None:
+                dst = params.get(path)
+                if dst is None:
+                    raise ValueError(f"{path}: no such parameter in the "
+                                     "port")
+                if tuple(arr.shape) != tuple(dst.shape):
+                    raise ValueError(f"{path}: shape {arr.shape} != "
+                                     f"{tuple(dst.shape)}")
+                out[path] = arr
+                continue
+            stack_name, n = stack
+            dst = params.get(f"{stack_name}.0.{path}")
+            if dst is None:
+                raise ValueError(f"{stack_name}.{path}: no such parameter in "
+                                 "the port")
+            lead = arr.shape[:arr.ndim - dst.dim()]
+            if tuple(arr.shape[len(lead):]) != tuple(dst.shape) \
+                    or int(np.prod(lead)) != n:
+                raise ValueError(f"{stack_name}.{path}: shape {arr.shape} "
+                                 f"is not {n} stacked {tuple(dst.shape)}")
+            flat = arr.reshape((n,) + tuple(dst.shape))
+            for i in range(n):
+                out[f"{stack_name}.{i}.{path}"] = flat[i]
+
+    for name, val in tree.items():
+        node = getattr(model, name, None)
+        if isinstance(node, torch.nn.ModuleList):
+            put("", val, (name, len(node)))
+        elif isinstance(val, dict):
+            put(name + ".", val)
+        else:
+            put("", {name: val})
+    if set(out) != set(params):
+        raise ValueError(f"parameters not in the tree: "
+                         f"{sorted(set(params) - set(out))}")
+    return out
+
+
 def model_params_from(tree, cfg: ModelConfig, device="cuda"):
     """The port's model with the reference's params: ``tree`` is the
     params pytree of ``repro.models`` as numpy arrays
-    (``jax.tree.map(np.asarray, params)``). The leading ``n_layers`` axis
-    of ``tree["layers"]`` is unstacked into one node per layer; every
-    array keeps its layout (the g-major column order of ``wq`` / ``wo``
+    (``jax.tree.map(np.asarray, params)``), of any family. Layer-stacked
+    subtrees are unstacked into one node per layer (zamba2's ``(n_super,
+    every, …)`` ``blocks`` into ``n_layers`` nodes, in order); every array
+    keeps its layout (the g-major column order of ``wq`` / ``wo``
     included). Raises if a name or shape does not match."""
     from .models import get_model
 
     model = get_model(cfg).empty(cfg, device)
-    filled = set()
-
-    def put(node, prefix, sub, index=None):
-        for name, val in sub.items():
-            path = f"{prefix}{name}"
-            if isinstance(val, dict):
-                put(getattr(node, name), path + ".", val, index)
-                continue
-            dst = getattr(node, name, None)
-            if dst is None:
-                raise ValueError(f"{path}: no such parameter in the port")
-            arr = np.asarray(val) if index is None else np.asarray(val)[index]
-            if tuple(arr.shape) != tuple(dst.shape):
-                raise ValueError(f"{path}: shape {arr.shape} != "
-                                 f"{tuple(dst.shape)}")
-            with torch.no_grad():
-                dst.copy_(_tensor(arr, dst.dtype, dst.device))
-            filled.add(path if index is None else f"layers.{index}.{path}")
-
-    put(model, "", {k: v for k, v in tree.items() if k != "layers"})
-    for i, node in enumerate(model.layers):
-        put(node, "", tree["layers"], index=i)
-    want = {n for n, _ in model.named_parameters()}
-    if filled != want:
-        raise ValueError(f"parameters not in the tree: "
-                         f"{sorted(want - filled)}")
+    arrays = _named_arrays(tree, model)
+    with torch.no_grad():
+        for name, dst in model.named_parameters():
+            dst.copy_(_tensor(arrays[name], dst.dtype, dst.device))
     return model
+
+
+def _moment_dtype(arr) -> torch.dtype:
+    return torch.bfloat16 if arr.dtype.name == "bfloat16" else torch.float32
+
+
+def opt_state_from(tree, model):
+    """The port's AdamW state (``repro_torch.train.optimizer``) from the
+    reference's ``{"m", "v", "step"}`` (as numpy arrays): the moments by
+    parameter name on ``model``'s device, in their dtype (float32, or
+    bfloat16 for ``moment_dtype="bfloat16"``), and the step as a host
+    int32 scalar."""
+    dev = model.device
+    state = {}
+    for key in ("m", "v"):
+        arrays = _named_arrays(tree[key], model)
+        state[key] = {name: _tensor(arr, _moment_dtype(arr), dev)
+                      for name, arr in arrays.items()}
+    state["step"] = torch.tensor(int(np.asarray(tree["step"])),
+                                 dtype=torch.int32)
+    return state

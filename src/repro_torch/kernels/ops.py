@@ -10,6 +10,12 @@ Every op takes ``impl``:
 
 Port of ``repro.kernels.ops._resolve`` and ``execute._resolve_impl``.
 Nothing here falls back: a failed build or launch raises.
+
+The CUDA kernels have no backward (nor have the reference's Pallas
+kernels): their wrappers write into fresh outputs, so under autograd the
+result would be a constant and the gradient cut. ``attention`` and
+``grouped_matmul`` on the CUDA route raise when grad is enabled and an
+input requires grad; their plain versions stay differentiable.
 """
 from __future__ import annotations
 
@@ -19,7 +25,7 @@ from . import flash_attention, grouped_mm, pair_sim, ref
 
 __all__ = ["IMPLS", "resolve_impl", "pair_scores", "pair_scores_catalog",
            "pair_scores_catalog_compact", "pair_scores_catalog_raw",
-           "grouped_matmul", "attention",
+           "grouped_matmul", "attention", "refuse_autograd",
            "launch_counts", "reset_launch_counts"]
 
 IMPLS = ("auto", "cuda", "torch")
@@ -38,6 +44,20 @@ def resolve_impl(impl: str, device) -> str:
                          "tensors run the plain version (impl='auto' or "
                          "'torch')")
     return impl
+
+
+def refuse_autograd(name: str, impl: str, *tensors) -> None:
+    """Raise if ``impl`` names the CUDA route (``"cuda"``, or ``"auto"`` on
+    CUDA tensors) while autograd would record ``tensors``: the kernel has
+    no backward."""
+    on_kernel = impl == "cuda" or (
+        impl == "auto" and tensors[0].device.type == "cuda")
+    if on_kernel and torch.is_grad_enabled() and any(
+            t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: the CUDA kernel has no backward; "
+                           "differentiate the plain route (impl='torch', "
+                           "attn_impl='plain', moe_dispatch='gshard') or "
+                           "run under torch.no_grad()")
 
 
 def pair_scores(a, b, *, threshold: float = 0.8, triangular: bool = False,
@@ -95,7 +115,8 @@ def grouped_matmul(x, tile_expert, w, *, block_t: int = 128,
                    impl: str = "auto"):
     """MoE expert product over tile-aligned expert-sorted rows (see
     ``grouped_mm.grouped_matmul``). The layout contract holds for both
-    routes."""
+    routes. The CUDA route refuses autograd (:func:`refuse_autograd`)."""
+    refuse_autograd("grouped_matmul", impl, x, w)
     if resolve_impl(impl, x.device) == "torch":
         grouped_mm.check_layout(x, tile_expert, w, block_t)
         return ref.grouped_matmul_ref(x, tile_expert, w, block_t=block_t)
@@ -107,7 +128,9 @@ def attention(q, k, v, *, causal: bool = True, scale=None,
     """Softmax attention, q (B, H, S, D) over k, v (B, KVH, S, D), query
     head h on KV head h // (H / KVH) (see
     ``flash_attention.flash_attention``). The reference kernel's
-    non-causal contract holds for both routes."""
+    non-causal contract holds for both routes. The CUDA route refuses
+    autograd (:func:`refuse_autograd`)."""
+    refuse_autograd("attention", impl, q, k, v)
     if resolve_impl(impl, q.device) == "torch":
         flash_attention.check_contract(q, k, v, causal=causal,
                                        block_q=block_q, block_k=block_k)

@@ -1,4 +1,5 @@
-"""LM families of the port: dense / vlm (``transformer``) and moe.
+"""The LM families of the port: dense / vlm (``transformer``), moe, ssm
+(``rwkv6``), hybrid (``zamba2``) and audio (``whisper``).
 
 Every family module exposes
     init(cfg, generator, device)              -> LanguageModel (nn.Module)
@@ -9,8 +10,9 @@ Every family module exposes
     decode_step(params, toks, cache, cfg, device) -> (logits, cache)
 
 as ``repro.models`` does, with an ``nn.Module`` in place of the params
-pytree. Families ``ssm``, ``hybrid`` and ``audio`` raise
-``NotImplementedError`` from :func:`get_model`.
+pytree (``transformer.LanguageModel``). ``forward`` is differentiable
+(the train step's); serving runs under ``no_grad``. Whisper's batch also
+carries ``frames`` (B, n_audio_frames, d_model), the stub frontend's.
 """
 from .config import ModelConfig  # noqa: F401
 from .registry import MODEL_FAMILIES, get_model  # noqa: F401

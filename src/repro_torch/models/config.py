@@ -6,10 +6,11 @@ attention route: ``attn_impl`` is ``"plain"`` (the chunked attention of
 ``"kernel"`` (``ops.attention``, the flash kernel on the card; the
 reference's ``"pallas"``). ``kernel_impl`` is the port's own: the ``ops``
 impl (``auto | cuda | torch``) of both kernel routes, the flash kernel and
-the grouped matmul of ``moe_dispatch="grouped"``. The fields of the
-reference's layer scan, remat and activation sharding (``remat``,
-``unroll_layers``, ``layer_unroll``, ``act_shard``) are kept as data; the
-port runs its layers in a Python loop and reads none of them.
+the grouped matmul of ``moe_dispatch="grouped"``. ``remat`` checkpoints
+each layer of a differentiated ``forward`` (``layers.remat``). The fields
+of the reference's layer scan and activation sharding (``unroll_layers``,
+``layer_unroll``, ``act_shard``) are kept as data; the port runs its
+layers in a Python loop and reads none of them.
 """
 from __future__ import annotations
 

@@ -17,11 +17,13 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
 
 __all__ = ["dtype_of", "dense_init", "rms_norm", "layer_norm", "rope_tables",
-           "apply_rope", "gqa_attention", "gqa_attention_cached", "swiglu"]
+           "apply_rope", "gqa_attention", "gqa_attention_cached", "swiglu",
+           "remat"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -144,3 +146,14 @@ def gqa_attention_cached(q, k_cache, v_cache, cur_len: int):
 
 def swiglu(x, w_gate, w_up, w_down):
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def remat(fn, *args, enabled: bool):
+    """``fn(*args)``; under autograd with ``enabled`` it runs under
+    ``torch.utils.checkpoint`` (non-reentrant), which keeps none of its
+    activations and recomputes them in the backward pass, as the
+    reference's ``jax.checkpoint(..., nothing_saveable)`` of a scanned
+    layer body or recurrence chunk does."""
+    if enabled and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)

@@ -43,7 +43,7 @@ def spec(cfg: ModelConfig) -> Dict:
     dt = dtype_of(cfg.param_dtype)
     dense = ("dense", None)
     s = _tf.spec(cfg.replace(tie_embeddings=False))
-    layer = s["layers"]
+    layer = s["layers"].layer
     for name in ("w_gate", "w_up", "w_down"):
         del layer[name]
     layer["router"] = ((d, e), dt, dense)
@@ -212,18 +212,26 @@ def _ffn(p, h, cfg: ModelConfig):
 # Trunk: the dense trunk with the MoE FFN
 # ---------------------------------------------------------------------------
 
-@torch.no_grad()
-def forward(params, batch, cfg: ModelConfig, return_aux: bool = False,
-            device="cuda"):
-    """tokens (B, S) → logits (and the mean router aux loss)."""
+def _body(h, p, cfg: ModelConfig, sin, cos):
+    """One layer of ``forward``: (h, the layer's router aux loss)."""
     aux = []
 
-    def ffn(p, h, cfg):
-        y, a = moe_ffn(p, h, cfg)
+    def ffn(p, x, cfg):
+        y, a = moe_ffn(p, x, cfg)
         aux.append(a)
         return y
 
-    logits = _tf.forward(params, batch, cfg, device=device, ffn=ffn)
+    h, _ = _tf.layer(h, p, cfg, sin, cos, ffn)
+    return h, aux[0]
+
+
+def forward(params, batch, cfg: ModelConfig, return_aux: bool = False,
+            device="cuda"):
+    """tokens (B, S) → logits (and the mean router aux loss, which carries
+    its gradient to the routers). Differentiable, as
+    ``transformer.forward``."""
+    logits, aux = _tf.forward_extras(params, batch, cfg, device=device,
+                                     body=_body)
     if return_aux:
         return logits, torch.stack(aux).sum() / cfg.n_layers
     return logits

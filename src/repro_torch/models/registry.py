@@ -1,11 +1,10 @@
-"""Family → module dispatch. Every family ported so far exposes the same
-functional surface (init / empty / forward / init_cache / prefill /
-decode_step)."""
+"""Family → module dispatch. Every family exposes the same functional
+surface (init / empty / forward / init_cache / prefill / decode_step)."""
 from __future__ import annotations
 
 from types import ModuleType
 
-from . import moe, transformer
+from . import moe, rwkv6, transformer, whisper, zamba2
 from .config import ModelConfig
 
 __all__ = ["MODEL_FAMILIES", "get_model"]
@@ -14,22 +13,13 @@ MODEL_FAMILIES = {
     "dense": transformer,
     "vlm": transformer,
     "moe": moe,
-}
-
-# Families of the reference not ported yet, with the ROADMAP item that
-# ports them.
-_LATER = {
-    "ssm": "rwkv6 (models/rwkv6.py)",
-    "hybrid": "zamba2 (models/zamba2.py)",
-    "audio": "whisper (models/whisper.py)",
+    "ssm": rwkv6,
+    "hybrid": zamba2,
+    "audio": whisper,
 }
 
 
 def get_model(cfg: ModelConfig) -> ModuleType:
-    if cfg.family in _LATER:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} ({_LATER[cfg.family]}) is not "
-            "ported yet: ROADMAP.md Queue 1 item 11")
     try:
         return MODEL_FAMILIES[cfg.family]
     except KeyError:

@@ -4,7 +4,9 @@ phi-3-vision backbone), in PyTorch.
 Port of ``repro.models.transformer``: the (forward, prefill, decode)
 triple with a KV cache. The reference stacks its layers on a leading
 axis and scans them; the port holds one parameter node per layer
-(:class:`LanguageModel`) and runs them in a Python loop. The cache is
+(:class:`LanguageModel`, shared by every family) and runs them in a
+Python loop. ``forward`` is differentiable (the train step's); serving
+(``prefill``, ``decode_step``) runs under ``no_grad``. The cache is
 updated in place (``prefill`` and ``decode_step`` return the dict they
 were given), and its write position ``pos`` is a Python int.
 
@@ -14,7 +16,7 @@ everything downstream is the same trunk.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, NamedTuple
 
 import torch
 from torch import nn
@@ -22,10 +24,11 @@ from torch import nn
 from ..device import resolve_device
 from .config import ModelConfig
 from .layers import (apply_rope, dense_init, dtype_of, gqa_attention,
-                     gqa_attention_cached, rms_norm, rope_tables, swiglu)
+                     gqa_attention_cached, remat, rms_norm, rope_tables,
+                     swiglu)
 
-__all__ = ["LanguageModel", "init", "empty", "forward", "init_cache",
-           "prefill", "decode_step"]
+__all__ = ["LanguageModel", "Stack", "init", "empty", "forward",
+           "forward_extras", "init_cache", "prefill", "decode_step"]
 
 
 # ---------------------------------------------------------------------------
@@ -48,22 +51,34 @@ class _Node(nn.Module):
                     requires_grad=False))
 
 
+class Stack(NamedTuple):
+    """The spec of ``n`` parameter nodes of one layer spec: the reference's
+    layer-stacked leaves (leading axis ``n``), unstacked into one node
+    each."""
+    n: int
+    layer: Dict
+
+
 class LanguageModel(_Node):
     """The parameters of one model, named as the reference's params
-    pytree: the top-level tensors (``embed``, ``ln_f``, ``head``,
-    ``vis_proj``) and ``layers[i]``, one node per layer (the reference's
-    ``params["layers"]`` leaves, unstacked). ``spec`` maps each name to
-    (shape, dtype, init) with init ``"ones"``, ``"zeros"`` or
-    ``("dense", scale)``; ``layers`` holds the spec of one layer."""
+    pytree: the top-level tensors (``embed``, ``ln_f``, ``head``, …),
+    child nodes for nested dicts (zamba2's ``shared_attn``) and, for each
+    :class:`Stack` of the spec, an ``nn.ModuleList`` of its nodes
+    (``layers[i]``; zamba2's ``blocks``, whisper's ``enc_layers`` and
+    ``dec_layers``). ``spec`` maps each name to (shape, dtype, init) with
+    init ``"ones"``, ``"zeros"``, ``("full", value)`` or
+    ``("dense", scale)``, to a dict, or to a :class:`Stack`."""
 
     def __init__(self, cfg: ModelConfig, spec: Dict, device):
-        spec = dict(spec)
-        layer = spec.pop("layers")
-        super().__init__(spec, device)
+        top = {k: v for k, v in spec.items() if not isinstance(v, Stack)}
+        super().__init__(top, device)
         self.cfg = cfg
-        self.layers = nn.ModuleList(_Node(layer, device)
-                                    for _ in range(cfg.n_layers))
-        self._spec = (spec, layer)
+        self._stacks = {k: v for k, v in spec.items()
+                        if isinstance(v, Stack)}
+        for name, st in self._stacks.items():
+            self.add_module(name, nn.ModuleList(
+                _Node(st.layer, device) for _ in range(st.n)))
+        self._top = top
 
     @property
     def device(self) -> torch.device:
@@ -72,15 +87,15 @@ class LanguageModel(_Node):
     @torch.no_grad()
     def init_(self, generator: torch.Generator) -> "LanguageModel":
         """Fill every parameter from ``generator`` (on this model's
-        device), in a fixed order: top-level tensors, then layer by
-        layer."""
+        device), in a fixed order: top-level tensors, then each stack,
+        node by node."""
         if torch.device(generator.device).type != self.device.type:
             raise ValueError(f"generator on {generator.device}, model on "
                              f"{self.device}: sample where the model lives")
-        top, layer = self._spec
-        _fill(self, top, generator)
-        for node in self.layers:
-            _fill(node, layer, generator)
+        _fill(self, self._top, generator)
+        for name, st in self._stacks.items():
+            for node in getattr(self, name):
+                _fill(node, st.layer, generator)
         return self
 
 
@@ -95,6 +110,8 @@ def _fill(node, spec, generator):
             t.fill_(1)
         elif how == "zeros":
             t.zero_()
+        elif how[0] == "full":
+            t.fill_(how[1])
         else:
             t.copy_(dense_init(shape, dtype, generator, scale=how[1]))
 
@@ -127,7 +144,7 @@ def _layer_spec(cfg: ModelConfig) -> Dict:
 def spec(cfg: ModelConfig) -> Dict:
     dt = dtype_of(cfg.param_dtype)
     s = {"embed": ((cfg.vocab, cfg.d_model), dt, ("dense", 1.0)),
-         "layers": _layer_spec(cfg),
+         "layers": Stack(cfg.n_layers, _layer_spec(cfg)),
          "ln_f": ((cfg.d_model,), dt, "ones")}
     if not cfg.tie_embeddings:
         s["head"] = ((cfg.d_model, cfg.vocab), dt, ("dense", None))
@@ -233,20 +250,41 @@ def lm_head(params, h):
     return h @ params.embed.to(h.dtype).T
 
 
-@torch.no_grad()
-def forward(params, batch, cfg: ModelConfig, device="cuda",
-            ffn: Callable = dense_ffn):
-    """batch: tokens (B, S) [+ patches (B, Np, d) for vlm] → logits."""
+def final_logits(params, h, cfg: ModelConfig):
+    """The final norm, then :func:`lm_head`."""
+    return lm_head(params, rms_norm(h, params.ln_f, cfg.rms_eps))
+
+
+def _dense_body(h, p, cfg: ModelConfig, sin, cos):
+    return layer(h, p, cfg, sin, cos)[0], None
+
+
+def forward(params, batch, cfg: ModelConfig, device="cuda"):
+    """batch: tokens (B, S) [+ patches (B, Np, d) for vlm] → logits.
+
+    Differentiable: under autograd (parameters that require grad) it
+    builds the graph the train step differentiates, and with
+    ``cfg.remat`` each layer runs under ``remat``."""
+    return forward_extras(params, batch, cfg, device)[0]
+
+
+def forward_extras(params, batch, cfg: ModelConfig, device="cuda",
+                   body: Callable = _dense_body):
+    """(logits, [body's extra per layer]): ``forward`` with ``body(h, p,
+    cfg, sin, cos) -> (h, extra)`` as one layer (the MoE trunk's returns
+    the layer's router aux loss)."""
     dev = _check_device(params, device)
     h = _embed_inputs(params, batch, cfg, dev)
     sin, cos = rope_tables(torch.arange(h.shape[1], device=dev), cfg.hd,
                            cfg.rope_theta)
+    extras = []
     for p in params.layers:
-        h, _ = layer(h, p, cfg, sin, cos, ffn)
+        h, extra = remat(body, h, p, cfg, sin, cos, enabled=cfg.remat)
+        extras.append(extra)
     h = rms_norm(h, params.ln_f, cfg.rms_eps)
     if cfg.family == "vlm":
         h = h[:, -batch["tokens"].shape[1]:]
-    return lm_head(params, h)
+    return lm_head(params, h), extras
 
 
 # ---------------------------------------------------------------------------
@@ -280,8 +318,7 @@ def prefill(params, batch, cfg: ModelConfig, cache, device="cuda",
         cache["k"][i, :, :s] = k.to(cache["k"].dtype)
         cache["v"][i, :, :s] = v.to(cache["v"].dtype)
     cache["pos"] = s
-    h = rms_norm(h[:, -1:], params.ln_f, cfg.rms_eps)
-    return lm_head(params, h), cache
+    return final_logits(params, h[:, -1:], cfg), cache
 
 
 @torch.no_grad()
@@ -303,5 +340,4 @@ def decode_step(params, tokens, cache, cfg: ModelConfig, device="cuda",
         h = decode_layer(h, p, cfg, sin, cos, cache["k"][i], cache["v"][i],
                          pos, ffn)
     cache["pos"] = pos + 1
-    h = rms_norm(h, params.ln_f, cfg.rms_eps)
-    return lm_head(params, h), cache
+    return final_logits(params, h, cfg), cache

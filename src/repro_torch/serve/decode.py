@@ -5,6 +5,13 @@ Python loop of decode steps (the reference scans them), greedy or with
 temperature sampling from an explicit ``torch.Generator``. The reference
 scans ``max_new_tokens`` decode steps and drops the last step's token; the
 port runs ``max_new_tokens − 1`` steps and returns the same tokens.
+
+Every family serves through it: the cache is the family's
+``init_cache(cfg, B, S + prefix + max_new_tokens)`` (the transformer's
+KV cache; rwkv6's O(1) recurrent state, which ignores the length;
+zamba2's states plus one KV cache per shared-block application;
+whisper's self-attention cache plus the cross K/V that prefill writes
+from ``batch["frames"]``).
 """
 from __future__ import annotations
 
@@ -43,9 +50,9 @@ def generate(params, cfg: ModelConfig, batch: Dict, max_new_tokens: int,
              generator: Optional[torch.Generator] = None,
              cache_len: Optional[int] = None, device="cuda") -> torch.Tensor:
     """Greedy / temperature generation. ``batch`` holds 'tokens' (B, S)
-    (+ 'patches' for vlm), tensors or arrays. Returns (B, max_new_tokens)
-    int32 on ``device``. Temperature sampling draws from ``generator``
-    (on ``device``; seed 0 when not given)."""
+    (+ 'patches' for vlm, 'frames' for audio), tensors or arrays. Returns
+    (B, max_new_tokens) int32 on ``device``. Temperature sampling draws
+    from ``generator`` (on ``device``; seed 0 when not given)."""
     dev = resolve_device(device)
     mod = get_model(cfg)
     b, s = batch["tokens"].shape

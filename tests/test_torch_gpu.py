@@ -1,6 +1,7 @@
 """Card tests of the port: the CUDA kernels (catalog, flash attention,
-grouped matmul) against their plain PyTorch versions, and ``run_er`` on
-the card against ``run_er`` on the CPU. Marked ``gpu``; each test asks the
+grouped matmul) against their plain PyTorch versions, ``run_er`` on
+the card against ``run_er`` on the CPU, and the LM families' serving and
+train step on the card against the CPU. Marked ``gpu``; each test asks the
 ``cuda`` fixture for the card and skips without one. Run them on the card
 with ``pytest -m gpu``."""
 import numpy as np
@@ -362,6 +363,110 @@ def test_generate_on_card_equals_cpu(cuda, arch):
     ref_logits = make_prefill(cfg, device="cpu")(
         cpu, batch, mod.init_cache(cfg, 2, 301 + prefix, device="cpu"))[0]
     assert torch.allclose(logits.cpu(), ref_logits, atol=2e-3, rtol=1e-2)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-2.7b",
+                                  "whisper-base"])
+def test_new_families_generate_on_card_equals_cpu(cuda, arch):
+    """rwkv6, zamba2 (shared block on the flash route, head dim 80) and
+    whisper (plain route) at reduced size, f32: the card's greedy tokens
+    and prefill logits equal the CPU's; a 512-token rwkv6 / zamba2
+    prompt runs the chunked recurrence."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import get_model
+    from repro_torch.serve import generate, make_prefill
+
+    cfg = reduced(get_config(arch))
+    if cfg.family == "hybrid":
+        cfg = cfg.replace(head_dim=80, attn_impl="kernel")
+    mod = get_model(cfg)
+    cpu = mod.init(cfg, torch.Generator("cpu").manual_seed(0), device="cpu")
+    card = mod.empty(cfg, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(0)
+    s = 64 if cfg.family == "audio" else 512
+    batch = {"tokens": rng.integers(0, cfg.vocab, (2, s))}
+    if cfg.family == "audio":
+        batch["frames"] = rng.standard_normal(
+            (2, cfg.n_audio_frames, cfg.d_model)).astype(np.float32)
+    ops.reset_launch_counts()
+    got = generate(card, cfg, batch, 6)
+    if cfg.family == "hybrid":
+        assert ops.launch_counts()["flash_attention"] == \
+            cfg.n_layers // cfg.shared_attn_every
+    want = generate(cpu, cfg, batch, 6, device="cpu")
+    assert torch.equal(got.cpu(), want)
+    logits = make_prefill(cfg)(card, batch, mod.init_cache(cfg, 2, s + 1))[0]
+    ref_logits = make_prefill(cfg, device="cpu")(
+        cpu, batch, mod.init_cache(cfg, 2, s + 1, device="cpu"))[0]
+    assert torch.allclose(logits.cpu(), ref_logits, atol=2e-3, rtol=1e-2)
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "qwen3-4b", "qwen1.5-4b",
+                                  "llama3.2-3b", "phi-3-vision-4.2b",
+                                  "granite-moe-1b-a400m",
+                                  "qwen3-moe-235b-a22b", "rwkv6-7b",
+                                  "zamba2-2.7b", "whisper-base"])
+def test_train_step_on_card_equals_cpu(cuda, arch):
+    """Three train steps (reduced, f32, TF32 off, plain routes) on the card
+    from the CPU's weights: the CPU's loss, xent, aux and grad_norm within
+    rtol 1e-4, params within atol 1e-5."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import get_model
+    from repro_torch.train import adamw_init, make_train_step
+    from repro_torch.train.optimizer import AdamWConfig
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = reduced(get_config(arch))
+    mod = get_model(cfg)
+    cpu = mod.init(cfg, torch.Generator("cpu").manual_seed(0), device="cpu")
+    card = mod.empty(cfg, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (2, 64)),
+             "labels": rng.integers(0, cfg.vocab, (2, 64))}
+    if cfg.family == "vlm":
+        batch["patches"] = rng.standard_normal(
+            (2, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    if cfg.family == "audio":
+        batch["frames"] = rng.standard_normal(
+            (2, cfg.n_audio_frames, cfg.d_model)).astype(np.float32)
+    runs = []
+    for model in (cpu, card):
+        step = make_train_step(cfg, AdamWConfig(lr=1e-3))
+        opt = adamw_init(model, AdamWConfig(lr=1e-3))
+        metrics = []
+        for _ in range(3):
+            model, opt, m = step(model, opt, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+        runs.append(metrics)
+    for got, want in zip(runs[1], runs[0]):
+        for k in ("loss", "xent", "grad_norm", "lr"):
+            assert got[k] == pytest.approx(want[k], rel=1e-4), k
+        assert got["aux"] == pytest.approx(want["aux"], rel=1e-4, abs=1e-6)
+    for (name, a), b in zip(cpu.named_parameters(), card.parameters()):
+        assert torch.allclose(b.cpu(), a, atol=1e-5, rtol=0), name
+
+
+def test_kernel_routes_refuse_autograd_on_card(cuda):
+    q, k, v = (torch.randn((1, n, 256, 64), device=cuda, requires_grad=True)
+               for n in (4, 2, 2))
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.attention(q, k, v)
+    x = torch.randn((16, 64), device=cuda, requires_grad=True)
+    w = torch.randn((2, 64, 32), device=cuda)
+    te = torch.tensor([0, 1], dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.grouped_matmul(x, te, w, block_t=8)
+    with torch.no_grad():           # inference launches as before
+        ops.reset_launch_counts()
+        ops.attention(q, k, v)
+        ops.grouped_matmul(x, te, w, block_t=8)
+        counts = ops.launch_counts()
+    assert counts["flash_attention"] == 1 and counts["grouped_matmul"] == 1
+    out = ops.attention(q, k, v, impl="torch")      # the plain route trains
+    out.sum().backward()
+    assert q.grad is not None and bool(torch.isfinite(q.grad).all())
 
 
 # ---------------------------------------------------------------------------

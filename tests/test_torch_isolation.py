@@ -37,7 +37,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.er.batcher, repro_torch.er.distributed, "
             "repro_torch.sharding, repro_torch.kernels, "
             "repro_torch.convert, repro_torch.configs, repro_torch.models, "
-            "repro_torch.serve; "
+            "repro_torch.serve, repro_torch.train, "
+            "repro_torch.train.checkpoint, repro_torch.data, "
+            "repro_torch.launch.train; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

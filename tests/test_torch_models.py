@@ -6,8 +6,9 @@ must give the reference's logits (atol 1e-4, rtol 1e-4) and tokens, for
 smollm (G = 2), qwen3 (qk_norm), qwen1.5 (qkv_bias) and phi-3-vision
 (vlm), on both of the port's attention routes, against the reference's
 ``attn_impl="xla"`` (its g-major attention). Also: configs and the
-converter, the families not ported yet, and the entry points' device
-rule. The moe family is in tests/test_torch_models_moe.py."""
+converter, the registry's six families, and the entry points' device
+rule. The moe family is in tests/test_torch_models_moe.py, ssm / hybrid /
+audio in tests/test_torch_models_{ssm,hybrid,audio}.py."""
 import numpy as np
 import pytest
 
@@ -61,10 +62,17 @@ def test_configs_and_converter_match_reference():
                                          ("hybrid", "zamba2-2.7b"),
                                          ("audio", "whisper-base")])
 def test_later_families_raise(family, arch):
+    """The families ported last are served (their modules are the
+    reference's names); only an unknown family raises."""
+    from repro.models import get_model as jget_model
+
     cfg = configs.get_config(arch)
     assert cfg.family == family
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        get_model(cfg)
+    mod = get_model(cfg)
+    assert mod.__name__ == "repro_torch.models." + \
+        jget_model(jconfigs.get_config(arch)).__name__.split(".")[-1]
+    with pytest.raises(ValueError, match="unknown model family"):
+        get_model(cfg.replace(family="rnn"))
 
 
 def test_entry_points_need_a_card_or_cpu_and_sample_seeded():

@@ -98,6 +98,9 @@ def lm_batch(cfg, seed):
     if cfg.family == "vlm":
         batch["patches"] = rng.standard_normal(
             (LM_B, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    if cfg.family == "audio":
+        batch["frames"] = rng.standard_normal(
+            (LM_B, cfg.n_audio_frames, cfg.d_model)).astype(np.float32)
     return batch
 
 
@@ -228,3 +231,77 @@ def legacy_mesh_inputs(mod_core, mod_er):
         rows[r] = (np.concatenate([rows[r][0], estart[k_blk] + x]),
                    np.concatenate([rows[r][1], estart[k_blk] + y]))
     return feats[perm], codes[perm], lens[perm], plan, rows
+
+
+def lm_consistency(cfg, model, seed=1, tol=dict(atol=2e-3, rtol=1e-2)):
+    """tests/test_arch_smoke.py::test_prefill_decode_consistency on the
+    port (CPU): prefill's last logits equal ``forward``'s last position,
+    and one decode step equals ``forward`` over the prompt + that token."""
+    from repro_torch.models import get_model
+
+    mod = get_model(cfg)
+    batch = {k: torch.from_numpy(v) for k, v in lm_batch(cfg, seed).items()}
+    full = mod.forward(model, batch, cfg, device="cpu")
+    prefix = cfg.n_patches if cfg.family == "vlm" else 0
+    cache = mod.init_cache(cfg, LM_B, LM_S + prefix + 4, device="cpu")
+    last, cache = mod.prefill(model, batch, cfg, cache, device="cpu")
+    assert bool(torch.isfinite(last).all())
+    np.testing.assert_allclose(last[:, 0].numpy(), full[:, -1].numpy(),
+                               **tol)
+    nxt = torch.argmax(last[:, -1:], dim=-1)
+    step, cache = mod.decode_step(model, nxt, cache, cfg, device="cpu")
+    full2 = mod.forward(model, dict(batch, tokens=torch.cat(
+        [batch["tokens"], nxt], dim=1)), cfg, device="cpu")
+    np.testing.assert_allclose(step[:, 0].numpy(), full2[:, -1].numpy(),
+                               **tol)
+
+
+LONG_S = 512   # > 256 and a multiple of it: the chunked recurrence
+
+
+def lm_long_prompt(arch, seed=2):
+    """A LONG_S-token prompt through the reference and the port at
+    ``reduced()`` size (batch 1): the reference's prefill logits and the
+    gradient of its ``loss_fn`` (the chunked, rematted scans), against the
+    port's prefill and the gradient of its ``loss_fn`` under autograd
+    (chunks of 256 under ``remat``). Returns (max |Δ logits|, {name:
+    (port grad, reference grad)})."""
+    import jax
+    import jax.numpy as jnp
+    from repro import configs as jconfigs
+    from repro.models import get_model as jget_model
+    from repro.train.train_step import loss_fn as jloss_fn
+    from repro_torch import configs
+    from repro_torch.convert import model_params_from
+    from repro_torch.models import get_model
+    from repro_torch.train.train_step import loss_fn
+
+    jcfg = jconfigs.reduced(jconfigs.get_config(arch))
+    jmod = jget_model(jcfg)
+    params = jmod.init(jcfg, jax.random.key(seed))
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, jcfg.vocab, (1, LONG_S)).astype(np.int32)
+    labels = rng.integers(0, jcfg.vocab, (1, LONG_S)).astype(np.int32)
+    batch = {"tokens": tokens, "labels": labels}
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    want, _ = jmod.prefill(params, jbatch, jcfg,
+                           jmod.init_cache(jcfg, 1, LONG_S))
+    jgrads = jax.grad(lambda p: jloss_fn(p, jbatch, jcfg)[0])(params)
+
+    cfg = configs.reduced(configs.get_config(arch))
+    mod = get_model(cfg)
+    tree = jax.tree.map(np.asarray, params)
+    model = model_params_from(tree, cfg, device="cpu")
+    got, _ = mod.prefill(model, batch, cfg,
+                         mod.init_cache(cfg, 1, LONG_S, device="cpu"),
+                         device="cpu")
+    named = dict(model.named_parameters())
+    for p in named.values():
+        p.requires_grad_(True)
+    loss, _ = loss_fn(model, batch, cfg)
+    grads = dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
+    ref = dict(model_params_from(jax.tree.map(np.asarray, jgrads), cfg,
+                                 device="cpu").named_parameters())
+    diff = float(np.abs(got.numpy() - np.asarray(want)).max())
+    return diff, {n: (g.numpy(), ref[n].detach().numpy())
+                  for n, g in grads.items()}
