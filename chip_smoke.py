@@ -82,8 +82,9 @@ LM serving, granite-moe-1b-a400m (``repro_torch.serve.generate``):
 
   LM-a kernels — the flash-attention and grouped-matmul kernels against
                their plain versions at the main path's shapes (granite
-               prefill and decode, phi-3-vision's prefill, a ragged S, head
-               dims 16/32/64/80/96/128, G = 4, non-causal, scales -0.125 and
+               prefill and decode, phi-3-vision's and zamba2-2.7b's
+               prefills, a ragged S, head dims 16/32/64/80/96/128, G = 1 to
+               4, non-causal, scales -0.125 and
                0; grouped at block_t 128 and 8 with real routing), bf16 and
                f32, within the JAX package's own tolerances and per row band
                to each band's own scale;
@@ -127,9 +128,9 @@ The eighth slice (training, and the ssm / hybrid / audio families):
                40 steps of 8 x 1,024 tokens with async checkpoints every
                20, every loss finite and the mean of the last 5 below the
                first; the checkpoint of step 40 equal to the run's state in
-               memory bit for bit; step ms, tokens/s, peak memory and one
-               step's device busy share (``torch.profiler``); then
-               ``main(--steps 50)``, which must resume from step 40;
+               memory bit for bit; step ms, tokens/s, peak memory and the
+               device busy share (median of 5 steps, ``torch.profiler``);
+               then ``main(--steps 50)``, which must resume from step 40;
   LM-f families — zamba2-2.7b on the flash route (head dim 80): 12 layers
                f32 against the plain route (prefill + 4 decode steps, LM-b's
                tolerance, one flash launch per super-block), then full
@@ -1451,7 +1452,8 @@ LM_A_FLASH = (  # (B, H, KVH, S, D, causal, scale), each in bf16 and f32
     (1, 8, 4, 333, 80, True, None),      # zamba2's head dim, ragged S
     (1, 8, 4, 1024, 96, False, None),
     (2, 16, 8, 1000, 64, True, -0.125),  # scale < 0 and scale 0
-    (1, 8, 8, 512, 96, True, 0.0), (1, 8, 4, 1024, 80, False, -0.125))
+    (1, 8, 8, 512, 96, True, 0.0), (1, 8, 4, 1024, 80, False, -0.125),
+    (2, 32, 32, 1024, 80, True, None))  # zamba2-2.7b prefill (LM-f), G = 1
 
 
 def granite(torch, arch=GRANITE, **over):
@@ -1489,8 +1491,8 @@ def lm_kernels_phase(torch, np):
     flash's largest band error, ``ref.band_rel_err``)."""
     from repro_torch.kernels import ops, ref
 
-    phase("LM-a LM kernels vs plain versions (granite and phi-3-vision "
-          "shapes, head dims 16-128, scales <= 0)")
+    phase("LM-a LM kernels vs plain versions (granite, phi-3-vision and "
+          "zamba2 shapes, head dims 16-128, scales <= 0)")
     rng = np.random.default_rng(0)
     errs = {"flash_attention": 0.0, "flash_band": 0.0, "grouped_matmul": 0.0,
             "grouped_band": 0.0}
@@ -2099,6 +2101,7 @@ T_A_TOL = dict(metrics_rtol=1e-4, aux_atol=1e-6, params_atol=1e-5)
 T_B_ARGS = ["--arch", SMOLLM, "--batch", "8", "--seq", "1024",
             "--ckpt-every", "20", "--log-every", "1", "--seed", "0"]
 T_B_STEPS = (40, 50)        # the first run, then the resumed one
+T_B_PROFILED = 5            # steps profiled one by one for the busy share
 
 
 def _train_steps(torch, model, cfg, batch, steps):
@@ -2174,7 +2177,8 @@ def train_slice_phase(torch, np):
     8 x 1,024 tokens with async checkpoints every 20 into a temp dir, then
     ``main`` again to 50, which must resume from step 40; the checkpoint
     of step 40 must equal the first run's params and moments bit for bit.
-    Step ms, tokens/s, peak memory, and one step's device busy share."""
+    Step ms, tokens/s, peak memory, and the device busy share (median of
+    ``T_B_PROFILED`` profiled steps)."""
     import io
     import tempfile
 
@@ -2236,8 +2240,8 @@ def train_slice_phase(torch, np):
             f"moments equal the run's in memory bit for bit "
             f"({len(state['params'])} parameters)")
         del state
-        # one step's device busy share (torch.profiler), on the in-memory
-        # state after the run
+        # the device busy share of T_B_PROFILED steps, each under its own
+        # torch.profiler, on the in-memory state after the run
         step = make_train_step(cfg, AdamWConfig(lr=3e-3), total_steps=first)
         batch = {"tokens": torch.randint(0, cfg.vocab, (8, 1024),
                                          device="cuda"),
@@ -2245,18 +2249,28 @@ def train_slice_phase(torch, np):
                                          device="cuda")}
         opt = res["opt_state"]
         step(model, opt, batch)
-        pwall, cats = device_breakdown(
-            torch, lambda: step(model, opt, batch), kernels=())
-        busy = cats["other"]
-        top = sorted(cats["other_by_name"].items(), key=lambda kv: -kv[1])[:6]
-        if busy > 0:
-            log(f"one train step under torch.profiler: wall {pwall * 1e3:.2f}"
-                f" ms, device busy {busy * 1e3:.2f} ms ({busy / pwall:.1%}; "
-                f"idle {1 - busy / pwall:.1%}); {cats['device_events']} "
-                "kernels and copies; largest (ms): " + "; ".join(
+        shares = []
+        for _ in range(T_B_PROFILED):
+            pwall, cats = device_breakdown(
+                torch, lambda: step(model, opt, batch), kernels=())
+            busy = cats["other"]
+            if busy == 0:
+                break
+            shares.append(busy / pwall)
+            top = sorted(cats["other_by_name"].items(),
+                         key=lambda kv: -kv[1])[:6]
+            log(f"one train step under torch.profiler: wall "
+                f"{pwall * 1e3:.2f} ms, device busy {busy * 1e3:.2f} ms "
+                f"({busy / pwall:.1%}); {cats['device_events']} kernels and "
+                "copies; largest (ms): " + "; ".join(
                     f"{n} {sec * 1e3:.2f}" for n, sec in top))
+        busy_share = float(np.median(shares)) if shares else None
+        if shares:
+            log(f"busy share over {len(shares)} profiled steps: median "
+                f"{busy_share:.1%}, min {min(shares):.1%}, max "
+                f"{max(shares):.1%}")
         else:
-            log("one train step under torch.profiler: the profiler saw no "
+            log("train step under torch.profiler: the profiler saw no "
                 "device time (busy share not measured)")
         del model, opt, res
         torch.cuda.empty_cache()
@@ -2277,7 +2291,7 @@ def train_slice_phase(torch, np):
             f"{second - first} more steps in {resume_s:.2f} s")
     return dict(step_ms=step_ms, tokens_per_s=tok_s, peak_bytes=peak,
                 loss_first=losses[0], loss_last5=float(np.mean(losses[-5:])),
-                busy_share=busy / pwall if busy > 0 else None)
+                busy_share=busy_share)
 
 
 # ---------------------------------------------------------------------------

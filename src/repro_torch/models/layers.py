@@ -23,7 +23,7 @@ from ..kernels import ops
 
 __all__ = ["dtype_of", "dense_init", "rms_norm", "layer_norm", "rope_tables",
            "apply_rope", "gqa_attention", "gqa_attention_cached", "swiglu",
-           "remat"]
+           "remat", "chunked_scan"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -157,3 +157,20 @@ def remat(fn, *args, enabled: bool):
     if enabled and torch.is_grad_enabled():
         return checkpoint(fn, *args, use_reentrant=False)
     return fn(*args)
+
+
+def chunked_scan(steps, state, streams, consts=(), chunk: int = 256):
+    """``steps(state, *streams, *consts) -> (y, state)`` over dim 1 of every
+    tensor in ``streams``. A sequence longer than ``chunk`` steps and a
+    multiple of it runs in chunks of ``chunk``, each under ``remat``, so
+    autograd keeps one state a chunk instead of one a step (the reference's
+    two-level scan of a recurrence)."""
+    seq = streams[0].shape[1]
+    if seq <= chunk or seq % chunk:
+        return steps(state, *streams, *consts)
+    ys = []
+    for c in range(0, seq, chunk):
+        y, state = remat(steps, state, *(x[:, c:c + chunk] for x in streams),
+                         *consts, enabled=True)
+        ys.append(y)
+    return torch.cat(ys, dim=1), state

@@ -29,7 +29,7 @@ import torch.nn.functional as F
 
 from . import transformer as _tf
 from .config import ModelConfig
-from .layers import dtype_of, remat, rms_norm
+from .layers import chunked_scan, dtype_of, remat, rms_norm
 
 __all__ = ["init", "empty", "forward", "init_cache", "prefill",
            "decode_step"]
@@ -93,9 +93,6 @@ def _shift(x, last=None):
     return torch.cat([first, x[:, :-1]], dim=1)
 
 
-_WKV_CHUNK = 256
-
-
 def _wkv_steps(state, r, k, v, w, u):
     """The recurrence over the T = r.shape[1] steps of r/k/v/w (B, T, H,
     hd) from ``state`` (B, H, hd, hd) f32: (y (B, T, H, hd), state)."""
@@ -108,23 +105,6 @@ def _wkv_steps(state, r, k, v, w, u):
         state = w[:, t].to(state.dtype)[..., None] * state \
             + kv.to(state.dtype)
     return torch.stack(ys, dim=1), state
-
-
-def _wkv_scan(r, k, v, w, u, state):
-    """r/k/v/w (B, S, H, hd), w the decay in (0, 1); u (H, hd) the bonus;
-    state (B, H, hd, hd) f32. Returns (y, state). A sequence longer than
-    256 steps and a multiple of 256 runs in chunks of 256, each under
-    ``remat`` (the reference's two-level scan)."""
-    seq = r.shape[1]
-    if seq <= _WKV_CHUNK or seq % _WKV_CHUNK:
-        return _wkv_steps(state, r, k, v, w, u)
-    ys = []
-    for c in range(0, seq, _WKV_CHUNK):
-        sl = slice(c, c + _WKV_CHUNK)
-        y, state = remat(_wkv_steps, state, r[:, sl], k[:, sl], v[:, sl],
-                         w[:, sl], u, enabled=True)
-        ys.append(y)
-    return torch.cat(ys, dim=1), state
 
 
 def _time_mix(p, x, cfg: ModelConfig, state, last_x):
@@ -141,8 +121,9 @@ def _time_mix(p, x, cfg: ModelConfig, state, last_x):
     wx = mix(p.mu_w) @ p.w_decay + p.w_decay_b
     w = torch.exp(-torch.exp(wx.to(torch.float32))).to(x.dtype)
     shp = (b, s, cfg.n_heads, cfg.hd)
-    y, state = _wkv_scan(r.reshape(shp), k.reshape(shp), v.reshape(shp),
-                         w.reshape(shp), p.u_bonus, state)
+    # w is the decay in (0, 1), u_bonus (H, hd); the state stays f32
+    y, state = chunked_scan(_wkv_steps, state, tuple(
+        t.reshape(shp) for t in (r, k, v, w)), (p.u_bonus,))
     y = y.to(x.dtype)     # keep the layer carry in the compute dtype
     y = rms_norm(y.reshape(b, s, d), p.ln_x, cfg.rms_eps)
     y = y * F.silu(g)

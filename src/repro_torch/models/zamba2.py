@@ -32,7 +32,7 @@ import torch.nn.functional as F
 
 from . import transformer as _tf
 from .config import ModelConfig
-from .layers import dtype_of, remat, rms_norm, rope_tables
+from .layers import chunked_scan, dtype_of, remat, rms_norm, rope_tables
 
 __all__ = ["init", "empty", "forward", "init_cache", "prefill",
            "decode_step"]
@@ -102,9 +102,6 @@ def _causal_conv(x, w, b, state):
     return F.silu(y), xp[:, -(k - 1):]
 
 
-_SSD_CHUNK = 256
-
-
 def _ssd_steps(state, xh, bmat, cmat, dt_, a):
     """The recurrence over the T = xh.shape[1] steps of xh (B, T, H, hd),
     bmat/cmat (B, T, ds), dt_ (B, T, H) f32 from ``state`` (B, H, hd, ds)
@@ -121,21 +118,6 @@ def _ssd_steps(state, xh, bmat, cmat, dt_, a):
     return torch.stack(ys, dim=1), state
 
 
-def _ssd_scan(xh, bmat, cmat, dt_, a, state):
-    """Single-group SSD recurrence; chunked by 256 under ``remat`` as
-    ``rwkv6._wkv_scan``."""
-    seq = xh.shape[1]
-    if seq <= _SSD_CHUNK or seq % _SSD_CHUNK:
-        return _ssd_steps(state, xh, bmat, cmat, dt_, a)
-    ys = []
-    for c in range(0, seq, _SSD_CHUNK):
-        sl = slice(c, c + _SSD_CHUNK)
-        y, state = remat(_ssd_steps, state, xh[:, sl], bmat[:, sl],
-                         cmat[:, sl], dt_[:, sl], a, enabled=True)
-        ys.append(y)
-    return torch.cat(ys, dim=1), state
-
-
 def _mamba_layer(x, p, cfg: ModelConfig, ssm_state, conv_state):
     b, s, _ = x.shape
     di, ds, nh, hd, _ = _dims(cfg)
@@ -149,7 +131,8 @@ def _mamba_layer(x, p, cfg: ModelConfig, ssm_state, conv_state):
     a = -torch.exp(p.A_log.to(torch.float32))
     xh = xin.reshape(b, s, nh, hd)
     # the recurrence state stays f32; the streams stay in the compute dtype
-    y, ssm_state = _ssd_scan(xh, bmat, cmat, dt_, a, ssm_state)
+    y, ssm_state = chunked_scan(_ssd_steps, ssm_state,
+                                (xh, bmat, cmat, dt_), (a,))
     y = y.to(x.dtype) + p.D[None, None, :, None] * xh
     y = y.reshape(b, s, di) * F.silu(z)
     return x + y @ p.out_proj, ssm_state, conv_state
