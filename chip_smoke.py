@@ -143,8 +143,30 @@ The eighth slice (training, and the ssm / hybrid / audio families):
                Prefill s, decode ms per step, tokens/s, peak memory; two
                greedy runs must agree.
 
+The ninth slice (the cell harness: ``repro_torch.launch.steps`` and the
+dry-run's roofline with H100 data-sheet constants):
+
+  DR cells   — ``steps.build_cell(device="cuda")`` on the one-card test
+               mesh at full width and depth, bf16, random weights from seed
+               0, each global batch cut to one card's share (logged): DR-1
+               smollm-360m x train_4k (256 -> 2; one warm-up and three
+               timed steps, plain routes), DR-2 qwen3-4b x prefill_32k
+               (32 -> 1; one timed step on the plain route, then three on
+               the flash kernel route, S 32,768, D 128: the same next
+               token), DR-3 granite-moe-1b-a400m x decode_32k (128 -> 8, a
+               32k cache at pos 32,767; ten timed steps on the plain /
+               gshard routes, then ten on the grouped + kernel routes, in
+               bf16, their next tokens compared; then the same cell in f32,
+               where the grouped + kernel route must give drop-free
+               gshard's next tokens and logits). Per cell: the step time (host clock ending
+               in a synchronize), ``max_memory_allocated`` and the MFU
+               (model FLOPs / (989 TFLOP/s x step)), beside
+               ``dryrun.run_cell``'s prediction for the same cut cell on the
+               same mesh (step, bottleneck, the three terms, peak live +
+               argument bytes) and the ratios measured / predicted.
+
 Phases run in the order 1-6, D, ER-t, ER-f, ER-s, ER-m, LM-a, LM-b, LM-c,
-LM-e, LM-d, T-a, T-b, LM-f, then 7, the
+LM-e, LM-d, T-a, T-b, LM-f, DR, then 7, the
 summary. The last two lines of standard output are the kernel
 summary and ``{"ok": true, "device": {...}}``. Without a card, or without the repo
 beside it, the script exits non-zero and prints no result.
@@ -153,6 +175,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import json
 import re
 import subprocess
@@ -2489,6 +2512,203 @@ def lm_families_phase(torch, np):
 
 
 # ---------------------------------------------------------------------------
+# DR: the cell harness's cells at full width and depth, measured against
+# the dry-run's prediction
+# ---------------------------------------------------------------------------
+
+DR_CELLS = (  # (label, arch, shape, the global batch one card holds)
+    ("DR-1", SMOLLM, "train_4k", 2),
+    ("DR-2", "qwen3-4b", "prefill_32k", 1),
+    ("DR-3", GRANITE, "decode_32k", 8),
+)
+DR_STEPS = {"train": (1, 3), "prefill": (0, 1), "decode": (1, 10)}
+DR_KERNEL_STEPS = {"prefill": (1, 3), "decode": (1, 10)}
+
+
+def _dr_time(torch, fn, args, warm, steps):
+    """``warm`` untimed then ``steps`` timed calls of ``fn(*args)`` (host
+    clock, each ending in ``torch.cuda.synchronize()``); returns (mean
+    seconds a step, the last output)."""
+    out = None
+    for _ in range(warm):
+        out = fn(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        out = fn(*args)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / steps, out
+
+
+def _next_tokens(logits):
+    return logits[:, -1].float().argmax(-1)
+
+
+def dr_phase(torch, np, smi):
+    """DR: ``steps.build_cell(device="cuda")`` on the one-card test mesh at
+    full width and depth, bf16, random weights from seed 0, the global
+    batch cut to one card's share: DR-1 smollm-360m × train_4k, DR-2
+    qwen3-4b × prefill_32k (plain route, then the flash kernel route; the
+    same next token), DR-3 granite-moe × decode_32k at pos 32,767 (plain /
+    gshard, then grouped + kernel routes, timed in bf16; the same next
+    tokens and logits in f32, :func:`_dr_moe_f32`). Each
+    cell's measured step, peak memory and MFU beside ``dryrun.run_cell``'s
+    prediction for the same cut cell on the same mesh. Returns (the kernel
+    launches of the phase, the rows)."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.roofline import PEAK_FLOPS, model_flops
+    from repro_torch.launch.steps import build_cell, make_step, scan_trips
+
+    phase("DR the cell harness at full width and depth: measured vs the "
+          "dry-run's prediction (H100 data-sheet constants)")
+    t_phase = time.perf_counter()
+    mesh = make_test_mesh(1)
+    log(f"mesh: {mesh.shape} on {mesh.first_device}; {smi}")
+    launches, rows = {}, {}
+    for label, arch, shape_name, batch in DR_CELLS:
+        cfg, full = get_config(arch), SHAPES[shape_name]
+        shape = dataclasses.replace(full, global_batch=batch)
+        kind = shape.kind
+        log(f"{label} {arch} x {shape_name}: global batch "
+            f"{full.global_batch} -> {batch} ({batch} x {shape.seq_len:,} "
+            f"{'context' if kind == 'decode' else 'tokens'}), "
+            f"{scan_trips(cfg)} trips of depth")
+        pred = run_cell(cfg, shape, mesh, "1x1")
+        torch.cuda.empty_cache()
+        cell = build_cell(cfg, shape, mesh, layer_unroll=scan_trips(cfg),
+                          device="cuda", seed=0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        warm, steps = DR_STEPS[kind]
+        step_s, out = _dr_time(torch, cell.fn, cell.args, warm, steps)
+        peak = torch.cuda.max_memory_allocated()
+        if kind == "train":
+            loss = float(out[2]["loss"])
+            if not np.isfinite(loss):
+                raise AssertionError(f"{label}: loss {loss}")
+            check = f"loss {loss:.4f} finite"
+        else:
+            logits = out[0]
+            if tuple(logits.shape) != (batch, 1, cfg.vocab) \
+                    or not bool(torch.isfinite(logits).all()):
+                raise AssertionError(f"{label}: logits {tuple(logits.shape)}"
+                                     " not finite or misshapen")
+            check = f"logits {tuple(logits.shape)} finite"
+        mfu = model_flops(cfg, shape) / (PEAK_FLOPS * step_s)
+        pred_mem = pred["temp_bytes/dev"] + pred["arg_bytes/dev"]
+        row = dict(step_s=step_s, peak_bytes=peak, mfu=mfu,
+                   pred_step_s=pred["step_s"],
+                   pred_bottleneck=pred["bottleneck"],
+                   pred_compute_s=pred["compute_s"],
+                   pred_memory_s=pred["memory_s"],
+                   pred_collective_s=pred["collective_s"],
+                   pred_bytes=pred_mem, pred_mfu=pred["mfu"],
+                   step_ratio=step_s / pred["step_s"],
+                   memory_ratio=peak / pred_mem)
+        log(f"{label} measured: step {step_s:.4f} s (mean of {steps} after "
+            f"{warm} warm-up), peak memory {peak / 2**30:.2f} GiB, MFU "
+            f"{mfu:.4f}; {check}")
+        log(f"{label} predicted: step {pred['step_s']:.4f} s "
+            f"({pred['bottleneck']}; compute {pred['compute_s']:.4f} / "
+            f"memory {pred['memory_s']:.4f} / collective "
+            f"{pred['collective_s']:.4f} s), peak live + arguments "
+            f"{pred_mem / 2**30:.2f} GiB, MFU {pred['mfu']:.4f}; measured / "
+            f"predicted: step {row['step_ratio']:.3f}, memory "
+            f"{row['memory_ratio']:.3f}  [{smi}]")
+        if kind in DR_KERNEL_STEPS:
+            fast = cfg.replace(attn_impl="kernel") if kind == "prefill" \
+                else cfg.replace(attn_impl="kernel", moe_dispatch="grouped")
+            dev = torch.device("cuda")
+            before = ops.launch_counts()
+            warm, steps = DR_KERNEL_STEPS[kind]
+            torch.cuda.reset_peak_memory_stats()
+            k_s, k_out = _dr_time(torch, make_step(fast, kind, dev,
+                                                   shape.seq_len - 1),
+                                  cell.args, warm, steps)
+            k_peak = torch.cuda.max_memory_allocated()
+            after = ops.launch_counts()
+            used = {k: after[k] - before[k] for k in after
+                    if after[k] != before[k]}
+            for k, n in used.items():
+                launches[k] = launches.get(k, 0) + n
+            got, want = _next_tokens(k_out[0]), _next_tokens(out[0])
+            agree = int((got == want).sum())
+            top2 = out[0][:, -1].float().topk(2, dim=-1).values
+            gap = float((top2[:, 0] - top2[:, 1]).min())
+            diff = float((k_out[0].float() - out[0].float()).abs().max())
+            row.update(kernel_step_s=k_s, kernel_peak_bytes=k_peak,
+                       kernel_mfu=model_flops(cfg, shape) / (PEAK_FLOPS
+                                                             * k_s),
+                       kernel_launches=used, logit_diff=diff,
+                       tokens_agree=agree)
+            log(f"{label} {'flash' if kind == 'prefill' else 'grouped'} "
+                f"route: step {k_s:.4f} s (mean of {steps} after {warm} "
+                f"warm-up; {step_s / k_s:.2f}x the plain route), peak memory "
+                f"{k_peak / 2**30:.2f} GiB, MFU {row['kernel_mfu']:.4f}, "
+                f"launches {used}; next tokens {got.tolist()}, the plain "
+                f"route's {want.tolist()} ({agree}/{batch} equal; max |logit "
+                f"diff| {diff:.3e}, least top-2 gap of the plain route "
+                f"{gap:.3e})")
+            if kind == "prefill" and not torch.equal(got, want):
+                raise AssertionError(f"{label}: the kernel route's next "
+                                     f"token {got.tolist()} != the plain "
+                                     f"route's {want.tolist()}")
+            del k_out
+        rows[label] = row
+        del cell, out
+        torch.cuda.empty_cache()
+        if cfg.family == "moe":
+            row["f32_max_diff"] = _dr_moe_f32(torch, cfg, shape, mesh, label)
+    for name in ("flash_attention", "grouped_matmul"):
+        if not launches.get(name):
+            raise AssertionError(f"DR: {name} never launched")
+    log(f"DR launches: {launches}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches, rows
+
+
+def _dr_moe_f32(torch, cfg, shape, mesh, label):
+    """The MoE cell's routes held against each other in f32, TF32 off, on
+    the same weights (seed 0: the f32 values the bf16 cell rounds), context
+    and tokens: the grouped + kernel route against the plain gshard route
+    at the capacity factor E / k, where capacity is the group's tokens and
+    no slot can drop (an expert takes at most one slot per token; at the
+    config's factor gshard drops slots, the grouped route none). In bf16,
+    24 layers of top-k routing turn rounding into other experts, so the
+    bf16 routes' tokens are compared above but not required equal. Returns
+    the max |logit diff|."""
+    from repro_torch.launch.steps import build_cell, make_step, scan_trips
+
+    f32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    cell = build_cell(f32, shape, mesh, layer_unroll=scan_trips(f32),
+                      device="cuda", seed=0)
+    dev, pos = torch.device("cuda"), shape.seq_len - 1
+    free = f32.replace(capacity_factor=f32.num_experts / f32.top_k)
+    want = make_step(free, "decode", dev, pos)(*cell.args)[0]
+    got = make_step(f32.replace(attn_impl="kernel", moe_dispatch="grouped"),
+                    "decode", dev, pos)(*cell.args)[0]
+    diff = float((got - want).abs().max())
+    if not torch.equal(_next_tokens(got), _next_tokens(want)) \
+            or not torch.allclose(got, want, **LM_B_TOL):
+        raise AssertionError(f"{label} f32: grouped + kernel route "
+                             f"{_next_tokens(got).tolist()} vs drop-free "
+                             f"gshard {_next_tokens(want).tolist()}, max "
+                             f"|logit diff| {diff}")
+    log(f"{label} f32, full width and depth, same weights / context / "
+        f"tokens: grouped + kernel route = plain gshard route at capacity "
+        f"factor {free.capacity_factor} (drop-free): next tokens "
+        f"{_next_tokens(got).tolist()} equal, max |logit diff| "
+        f"{diff:.3e} within atol {LM_B_TOL['atol']} / rtol "
+        f"{LM_B_TOL['rtol']}")
+    del cell, got, want
+    torch.cuda.empty_cache()
+    return diff
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not (SRC / "repro_torch" / "csrc" / "pair_sim.cu").is_file():
@@ -2529,6 +2749,7 @@ def main() -> int:
     train_check_phase(torch, np)
     train_slice_phase(torch, np)
     lm_f_launches, _ = lm_families_phase(torch, np)
+    dr_launches, _ = dr_phase(torch, np, smi)
 
     phase("7 summary")
     from repro_torch.kernels.ref import ATTENTION_BAND_TOL, GROUPED_BAND_TOL
@@ -2587,11 +2808,13 @@ def main() -> int:
         launches=lm_launches["flash_attention"],
         launches_phi3=vlm_launches["flash_attention"],
         launches_zamba2=lm_f_launches,
+        launches_dr=dr_launches["flash_attention"],
         path="LM-c generate, granite-moe prefill (attn_impl=kernel); "
              "launches_phi3: LM-e generate, phi-3-vision prefill (head dim "
              "96); launches_zamba2: LM-f generate, zamba2-2.7b prefill "
-             "(head dim 80, one per super-block); times at granite's "
-             "prefill shape, phi3_* at phi-3-vision's",
+             "(head dim 80, one per super-block); launches_dr: DR-2, "
+             "qwen3-4b x prefill_32k on the kernel route (S 32,768, D 128); "
+             "times at granite's prefill shape, phi3_* at phi-3-vision's",
         max_abs_err=lm_errs["flash_attention"],
         max_band_rel_err=lm_errs["flash_band"],
         compared_cases=lm_cases["flash_attention"],
@@ -2609,7 +2832,10 @@ def main() -> int:
         launches=lm_launches["grouped_matmul"],
         launches_block_t_128=lm_launches["grouped_matmul[block_t=128]"],
         launches_block_t_8=lm_launches["grouped_matmul[block_t=8]"],
+        launches_dr=dr_launches["grouped_matmul"],
         path="LM-c generate, granite-moe MoE FFN (moe_dispatch=grouped); "
+             "launches_dr: DR-3, granite-moe x decode_32k on the grouped "
+             "route (block_t 8); "
              "times at block_t=128 (prefill), decode_* at block_t=8; "
              "earlier_*: the kernel's earlier design (yardsticks/) in turns "
              "in this run",

@@ -1,14 +1,17 @@
-"""Config registry: arch name → ModelConfig, plus reduced smoke-test
-configs. Copy of ``repro.configs`` without ``input_specs`` (the reference's
-dry-run stand-ins) and the dry-run shape table."""
+"""Config registry: arch name → ModelConfig, plus input_specs and
+reduced smoke-test configs. Copy of ``repro.configs``."""
 from __future__ import annotations
 
 from typing import Dict
 
+import torch
+
 from ..models.config import ModelConfig
+from ..models.layers import dtype_of
 from . import (granite_moe_1b_a400m, llama3_2_3b, phi_3_vision_4_2b,
                qwen1_5_4b, qwen3_4b, qwen3_moe_235b_a22b, rwkv6_7b,
                smollm_360m, whisper_base, zamba2_2_7b)
+from .shapes import SHAPES, Shape, applicable, skip_reason  # noqa: F401
 
 ARCHS: Dict[str, ModelConfig] = {
     m.CONFIG.name: m.CONFIG
@@ -17,7 +20,8 @@ ARCHS: Dict[str, ModelConfig] = {
               rwkv6_7b, zamba2_2_7b, whisper_base)
 }
 
-__all__ = ["ARCHS", "get_config", "reduced"]
+__all__ = ["ARCHS", "SHAPES", "get_config", "reduced", "input_specs",
+           "applicable", "skip_reason"]
 
 
 def get_config(name: str) -> ModelConfig:
@@ -54,3 +58,32 @@ def reduced(cfg: ModelConfig, vocab: int = 512) -> ModelConfig:
     if cfg.family == "vlm":
         kw.update(n_patches=4)
     return cfg.replace(**kw)
+
+
+def input_specs(cfg: ModelConfig, shape: Shape, dtype=torch.int32):
+    """Meta-tensor stand-ins (shape and dtype, no storage) for every model
+    input of one cell, as the reference's ``ShapeDtypeStruct``s.
+
+    train  → {'tokens': (B, S), 'labels': (B, S)} (+ modality extras)
+    prefill→ {'tokens': (B, S)} (+ extras); cache built separately
+    decode → {'tokens': (B, 1)}; cache of length S built separately
+
+    The extras (vlm ``patches``, audio ``frames``) are in the compute
+    dtype."""
+    b, s = shape.global_batch, shape.seq_len
+    act = dtype_of(cfg.compute_dtype)
+
+    def sds(dims, dt):
+        return torch.empty(dims, dtype=dt, device="meta")
+
+    if shape.kind == "train":
+        batch = {"tokens": sds((b, s), dtype), "labels": sds((b, s), dtype)}
+    elif shape.kind == "prefill":
+        batch = {"tokens": sds((b, s), dtype)}
+    else:
+        batch = {"tokens": sds((b, 1), dtype)}
+    if cfg.family == "vlm" and shape.kind != "decode":
+        batch["patches"] = sds((b, cfg.n_patches, cfg.d_model), act)
+    if cfg.family == "audio" and shape.kind != "decode":
+        batch["frames"] = sds((b, cfg.n_audio_frames, cfg.d_model), act)
+    return batch

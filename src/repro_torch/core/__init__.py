@@ -1,15 +1,23 @@
 """Host planning for the port: numpy copies of ``repro.core`` — BDM,
 Basic, BlockSplit, PairRange, Sorted Neighborhood and the two-source
-extension. Of the jit-able ``*_jnp`` twins only ``pairs_of_range_jnp``
-is ported, as the torch ``pairs_of_range_torch`` the legacy mesh executor
-uses."""
+extension. The jit-able ``*_jnp`` twins are ported as ``*_torch``
+(static shapes, any device): ``greedy_lpt_torch``, ``compute_bdm_torch``,
+``entity_indices_torch`` and ``pairs_of_range_torch``, which the legacy
+mesh executor uses."""
 from . import enumeration  # noqa: F401
-from .assignment import greedy_lpt, greedy_lpt_hetero, makespan_stats  # noqa: F401
+from .assignment import (  # noqa: F401
+    greedy_lpt,
+    greedy_lpt_hetero,
+    greedy_lpt_torch,
+    makespan_stats,
+)
 from .basic import BasicPlan, plan_basic  # noqa: F401
 from .bdm import (  # noqa: F401
     blocked_layout,
     compute_bdm,
+    compute_bdm_torch,
     entity_indices,
+    entity_indices_torch,
     update_bdm,
 )
 from .block_split import BlockSplitPlan, plan_block_split  # noqa: F401

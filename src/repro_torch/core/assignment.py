@@ -4,16 +4,20 @@ The paper's BlockSplit assigns match tasks with a greedy LPT heuristic:
 sort tasks by pair count descending, then repeatedly give the next task to
 the reduce task with the fewest assigned pairs (§IV, Alg. 1 lines 22-27).
 
-A numpy copy of ``repro.core.assignment`` (host planning, dynamic task
-count), without the jit-able twin.
+Two twins, as ``repro.core.assignment``:
+  * :func:`greedy_lpt` — numpy host planning (dynamic task count).
+  * :func:`greedy_lpt_torch` — static shapes on any device, a running-load
+    argmin per task (the reference's ``greedy_lpt_jnp``).
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import numpy as np
+import torch
 
-__all__ = ["greedy_lpt", "greedy_lpt_hetero", "makespan_stats"]
+__all__ = ["greedy_lpt", "greedy_lpt_hetero", "greedy_lpt_torch",
+           "makespan_stats"]
 
 
 def greedy_lpt(weights: np.ndarray, r: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -54,6 +58,26 @@ def greedy_lpt_hetero(weights, rates) -> Tuple[np.ndarray, np.ndarray,
         assignment[t] = k
         loads[k] += w[t]
     return assignment, loads, loads * rates
+
+
+def greedy_lpt_torch(weights: torch.Tensor, r: int):
+    """Torch twin of :func:`greedy_lpt` (the reference's ``greedy_lpt_jnp``):
+    tasks in stable descending-weight order, each to the bin of least
+    running load, the lowest bin on ties. Returns ``(assignment, loads)``
+    on the device of ``weights``: assignment (T,) int64, loads (r,) in the
+    weights' dtype. The loop runs T steps of device ops and reads nothing
+    back to the host."""
+    order = torch.argsort(-weights, stable=True)
+    w_sorted = weights[order]
+    loads = torch.zeros(r, dtype=weights.dtype, device=weights.device)
+    bins = torch.empty_like(order)
+    for i in range(order.shape[0]):
+        k = torch.argmin(loads)      # first minimum: the lowest bin on ties
+        loads.index_add_(0, k.view(1), w_sorted[i:i + 1])
+        bins[i] = k
+    assignment = torch.empty_like(order)
+    assignment[order] = bins
+    return assignment, loads
 
 
 def makespan_stats(loads: np.ndarray) -> dict:

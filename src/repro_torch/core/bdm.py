@@ -6,8 +6,12 @@ strategies need — BlockSplit's match-task table and PairRange's ranges are
 deterministic functions of it, which is also the fault-tolerance story: a
 restarted worker recomputes its plan from the checkpointed BDM.
 
-A numpy copy of ``repro.core.bdm`` (host-side planning path), without
-the jit-able twins.
+Two implementations, as ``repro.core.bdm``:
+  * :func:`compute_bdm` / :func:`entity_indices` — numpy, host-side
+    (planning path).
+  * :func:`compute_bdm_torch` / :func:`entity_indices_torch` — torch on
+    any device, static shapes (the reference's ``*_jnp`` twins, with
+    ``torch.cummax`` for ``lax.cummax``).
 
 Entity indexing (paper §V, Fig. 6 "white numbers"): entity e in partition
 Π_i, block Φ_k gets global index = (# entities of Φ_k in Π_0..Π_{i-1}) +
@@ -19,11 +23,14 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
+import torch
 
 __all__ = [
     "compute_bdm",
+    "compute_bdm_torch",
     "update_bdm",
     "entity_indices",
+    "entity_indices_torch",
     "blocked_layout",
 ]
 
@@ -34,6 +41,19 @@ def compute_bdm(block_ids: np.ndarray, partition_ids: np.ndarray,
     flat = np.asarray(block_ids, np.int64) * num_partitions + np.asarray(partition_ids, np.int64)
     counts = np.bincount(flat, minlength=num_blocks * num_partitions)
     return counts.reshape(num_blocks, num_partitions).astype(np.int64)
+
+
+def compute_bdm_torch(block_ids: torch.Tensor, partition_ids: torch.Tensor,
+                      num_blocks: int, num_partitions: int) -> torch.Tensor:
+    """Torch twin of :func:`compute_bdm` (static b, m): the (b, m) counts
+    as int64 on the device of ``block_ids``. A scatter-add, not
+    ``bincount``, so no length is read back to the host."""
+    flat = (block_ids.to(torch.int64) * num_partitions
+            + partition_ids.to(torch.int64))
+    counts = torch.zeros(num_blocks * num_partitions, dtype=torch.int64,
+                         device=block_ids.device)
+    counts.scatter_add_(0, flat, torch.ones_like(flat))
+    return counts.reshape(num_blocks, num_partitions)
 
 
 def update_bdm(bdm: np.ndarray, block_ids: np.ndarray,
@@ -91,6 +111,34 @@ def entity_indices(block_ids: np.ndarray, partition_ids: np.ndarray,
     offs = np.concatenate([np.zeros((b, 1), np.int64), np.cumsum(bdm, axis=1)[:, :-1]], axis=1)
     base = offs[block_ids, partition_ids]
     rank = _cumcount_by_key(block_ids * m + partition_ids)
+    return base + rank
+
+
+def entity_indices_torch(block_ids: torch.Tensor,
+                         partition_ids: torch.Tensor,
+                         bdm: torch.Tensor) -> torch.Tensor:
+    """Torch twin of :func:`entity_indices` (int64, on the device of
+    ``block_ids``): the exclusive per-block offset of each partition plus
+    the entity's rank among its (block, partition) group in input order,
+    the group starts carried forward by ``torch.cummax``."""
+    b, m = bdm.shape
+    n = block_ids.shape[0]
+    dev = block_ids.device
+    block_ids = block_ids.to(torch.int64)
+    partition_ids = partition_ids.to(torch.int64)
+    bdm = bdm.to(torch.int64)
+    offs = torch.cat([torch.zeros((b, 1), dtype=torch.int64, device=dev),
+                      torch.cumsum(bdm, dim=1)[:, :-1]], dim=1)
+    base = offs[block_ids, partition_ids]
+    key = block_ids * m + partition_ids
+    order = torch.argsort(key, stable=True)
+    sorted_key = key[order]
+    iota = torch.arange(n, dtype=torch.int64, device=dev)
+    new_group = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                           sorted_key[1:] != sorted_key[:-1]])[:n]
+    group_start = torch.cummax(torch.where(new_group, iota, 0), dim=0).values
+    rank = torch.empty_like(iota)
+    rank[order] = iota - group_start
     return base + rank
 
 

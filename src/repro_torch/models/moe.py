@@ -200,7 +200,10 @@ def moe_ffn(p, x, cfg: ModelConfig):
 
 def router_aux_loss(ids, probs, cfg: ModelConfig):
     e = cfg.num_experts
-    f = F.one_hot(ids[:, 0], e).to(torch.float32).mean(dim=0)
+    # the one-hot by comparison: F.one_hot reads min/max back to the host
+    # on the CPU, and cannot on the meta device
+    top = ids[:, :1] == torch.arange(e, device=ids.device)
+    f = top.to(torch.float32).mean(dim=0)
     return e * torch.sum(f * probs.mean(dim=0))
 
 

@@ -1,7 +1,31 @@
-"""The ER executor's device mesh and its collectives, driven by one process.
+"""Sharding: the model-side partition specs over the production mesh
+axes ("pod", "data", "model"), and the ER executor's device mesh and its
+collectives, driven by one process.
 
-Port of ``repro.sharding.make_er_mesh`` (the model-side partition specs
-of the training substrate come with the training port). The reference
+Port of ``repro.sharding``. **Model-side specs** (reference
+``sharding.py:59-305``), used by the cell harness (``launch/steps.py``,
+``launch/dryrun.py``):
+
+  * 2-D weight sharding — tensor-parallel dims over ``model``, FSDP over
+    ("pod", "data") on the other large dim; MoE experts expert-parallel
+    over ``model``; KV caches batch over ("pod", "data"), kv-heads over
+    ``model`` when divisible, else the sequence (context parallelism).
+  * Rules match name patterns over the reference's ``/``-joined param
+    paths, first match wins, and a dim that an axis does not divide stays
+    unsharded. The port's tree has one node per layer (``layers.3.wq``;
+    zamba2's ``blocks`` flattened into ``n_layers`` nodes), so a port
+    name is turned into the reference's path (``layers/wq``) and matched
+    with no leading stack dims.
+  * A spec is a :class:`P`: a tuple with one entry per leading dim — an
+    axis name, a tuple of names, or None — trailing Nones dropped, as
+    ``jax.sharding.PartitionSpec``. :func:`shard_shape` gives the
+    per-device sizes. The production meshes are :class:`AbstractMesh`es:
+    axis names and sizes, no devices.
+  * The port runs no SPMD program, so :func:`constrain` and its wrappers
+    return their input unchanged, as the reference does outside a mesh
+    context; they still check that the spec fits the tensor's rank.
+
+**The ER mesh** (``make_er_mesh``). The reference
 is single-controller: one Python process plans and drives ``shard_map``
 over a ``jax.sharding.Mesh``. The port keeps that shape with no
 ``torch.distributed`` at all:
@@ -27,15 +51,20 @@ formulas of ``er/compiler/comms.py`` account.
 """
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["Mesh", "Sharded", "make_er_mesh", "shard_rows", "replicate",
-           "all_gather", "ppermute", "psum", "axis_index", "TP_AXIS"]
+__all__ = ["Mesh", "AbstractMesh", "Sharded", "make_er_mesh", "shard_rows",
+           "replicate", "all_gather", "ppermute", "psum", "axis_index",
+           "P", "constrain", "act_constrain", "attn_logits_constrain",
+           "param_spec", "param_shardings", "batch_spec", "cache_spec",
+           "cache_shardings", "shard_shape", "DP_AXES", "TP_AXIS"]
 
+DP_AXES = ("pod", "data")
 TP_AXIS = "model"
 
 
@@ -68,6 +97,10 @@ class Mesh:
         return dict(zip(self.axis_names, self.devices.shape))
 
     @property
+    def size(self) -> int:
+        return int(self.devices.size)
+
+    @property
     def device_type(self) -> str:
         return self.devices.flat[0].type
 
@@ -93,6 +126,34 @@ class Mesh:
             raise ValueError(f"model_axis {model_axis!r} must be the "
                              f"mesh's other axis")
         return grid
+
+
+class AbstractMesh:
+    """Named axes and their sizes, no devices: the production meshes of
+    the dry-run (``launch/mesh.py``), as ``jax.sharding.AbstractMesh``.
+    ``shape`` maps each axis name to its size, as :class:`Mesh`'s
+    does."""
+
+    def __init__(self, axis_sizes: Sequence[int], axis_names: Sequence[str]):
+        if len(axis_sizes) != len(axis_names) or not axis_names \
+                or min(axis_sizes) < 1 \
+                or len(set(axis_names)) != len(axis_names):
+            raise ValueError(f"an abstract mesh needs one size >= 1 per "
+                             f"distinct axis name, got {axis_sizes} "
+                             f"{axis_names}")
+        self.axis_sizes = tuple(int(n) for n in axis_sizes)
+        self.axis_names = tuple(axis_names)
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(self.axis_sizes))
+
+    def __repr__(self) -> str:
+        return f"AbstractMesh({self.shape})"
 
 
 def make_er_mesh(n_data: int, n_model: int = 1, *,
@@ -231,3 +292,265 @@ def axis_index(mesh: Mesh, axis: str) -> np.ndarray:
     ``mesh.devices`` (``jax.lax.axis_index`` evaluated at every
     position)."""
     return np.indices(mesh.devices.shape)[mesh.axis_names.index(axis)]
+
+
+# ---------------------------------------------------------------------------
+# Model-side partition specs (reference sharding.py:59-305)
+# ---------------------------------------------------------------------------
+
+class P(tuple):
+    """A partition spec: one entry per leading dim (an axis name, a tuple
+    of axis names, or None), as ``jax.sharding.PartitionSpec(*entries)``;
+    the dims past its length are unsharded. A one-name tuple is stored as
+    the name, as ``PartitionSpec`` stores it."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, (
+            e[0] if isinstance(e, tuple) and len(e) == 1 else e
+            for e in entries))
+
+    def __repr__(self) -> str:
+        return f"P{tuple(self)}"
+
+
+def _filter_spec(spec: Tuple, axes: Tuple[str, ...]) -> P:
+    """Drop mesh axes that do not exist in ``axes`` (lets the same rules
+    serve the (data, model) single-pod and (pod, data, model) multi-pod
+    meshes and the 1-device test mesh), and trailing Nones."""
+    out = []
+    for entry in spec:
+        if entry is None:
+            out.append(None)
+        elif isinstance(entry, tuple):
+            kept = tuple(a for a in entry if a in axes)
+            out.append(kept if kept else None)
+        else:
+            out.append(entry if entry in axes else None)
+    while out and out[-1] is None:
+        out.pop()
+    return P(*out)
+
+
+def _axes_size(mesh, entry) -> int:
+    names = entry if isinstance(entry, tuple) else (entry,)
+    return int(np.prod([mesh.shape[a] for a in names]))
+
+
+def shard_shape(shape: Sequence[int], spec: Sequence, mesh) -> Tuple[int, ...]:
+    """Per-device sizes of an array of ``shape`` laid out by ``spec`` over
+    ``mesh``; raises if an axis does not divide its dim."""
+    out = list(shape)
+    if len(spec) > len(out):
+        raise ValueError(f"spec {spec} has more entries than {tuple(shape)} "
+                         "has dims")
+    for i, entry in enumerate(spec):
+        if entry is None:
+            continue
+        n = _axes_size(mesh, entry)
+        if out[i] % n:
+            raise ValueError(f"dim {i} of {tuple(shape)} does not shard over "
+                             f"{entry} ({n} devices)")
+        out[i] //= n
+    return tuple(out)
+
+
+def constrain(x, *spec):
+    """The reference's ``with_sharding_constraint`` outside a mesh context:
+    returns ``x``. The port runs no SPMD program; the spec must still fit
+    ``x``'s rank."""
+    if len(spec) > x.dim():
+        raise ValueError(f"spec {spec} has more entries than the tensor's "
+                         f"{x.dim()} dims")
+    return x
+
+
+def act_constrain(x, mode: str):
+    """Layer-boundary activation constraint for a (B, S, d) tensor
+    ("seq": S over model, "d": d over model, "full_dp": the batch over
+    every axis, else the batch over the DP axes); returns ``x``."""
+    if mode == "seq":
+        return constrain(x, DP_AXES, TP_AXIS, None)
+    if mode == "d":
+        return constrain(x, DP_AXES, None, TP_AXIS)
+    if mode == "full_dp":
+        return constrain(x, DP_AXES + (TP_AXIS,), None, None)
+    return constrain(x, DP_AXES, None, None)
+
+
+def attn_logits_constrain(x):
+    """(B, G, KV, Q, S) attention logits; returns ``x`` (the reference
+    shards them over the model axis inside a mesh context)."""
+    return constrain(x, DP_AXES, None, None, None, None)
+
+
+# (path-regex, spec for the *last* ndim dims). First match wins.
+_RULES = [
+    # --- MoE experts: (E, d, f) — EP over model, FSDP on d ---
+    (r"experts.*(w_gate|w_up)", (TP_AXIS, DP_AXES, None)),
+    (r"experts.*w_down", (TP_AXIS, None, DP_AXES)),
+    (r"router", (DP_AXES, None)),
+    # --- embeddings / lm head ---
+    (r"embed", (DP_AXES, TP_AXIS)),
+    (r"(^|/)head", (DP_AXES, TP_AXIS)),
+    (r"vis_proj", (DP_AXES, TP_AXIS)),
+    # --- attention ---
+    (r"wq|wk|wv|w_qkv", (DP_AXES, TP_AXIS)),
+    (r"wo", (TP_AXIS, DP_AXES)),
+    (r"b[qkv]$", (TP_AXIS,)),
+    # --- dense FFN ---
+    (r"w_gate|w_up|w_in|fc1", (DP_AXES, TP_AXIS)),
+    (r"w_down|w_out|fc2", (TP_AXIS, DP_AXES)),
+    # --- rwkv6 time-mix / channel-mix ---
+    (r"(w_r|w_k|w_v|w_g)$", (DP_AXES, TP_AXIS)),
+    (r"w_wkv_out", (TP_AXIS, DP_AXES)),
+    (r"w_decay$", (DP_AXES, TP_AXIS)),
+    (r"w_decay_b", (TP_AXIS,)),
+    (r"cm_(k|r)", (DP_AXES, TP_AXIS)),
+    (r"cm_v", (TP_AXIS, DP_AXES)),
+    # --- mamba2 ---
+    (r"in_proj", (DP_AXES, TP_AXIS)),
+    (r"out_proj", (TP_AXIS, DP_AXES)),
+    (r"conv_w", (TP_AXIS, None)),
+    (r"(A_log|D$|dt_bias|conv_b)", (TP_AXIS,)),
+]
+
+
+def param_spec(path: str, ndim: int, stacked: int) -> Tuple:
+    """Spec entries (one per dim) for one param leaf of ``ndim`` dims, by
+    its reference path (``layers/wq``). ``stacked`` = number of leading
+    layer-stack dims: 0 for every leaf of the port's tree."""
+    eff = ndim - stacked
+    lead = (None,) * stacked
+    for pat, spec in _RULES:
+        if re.search(pat, path):
+            if len(spec) == eff:
+                return lead + tuple(spec)
+            # bias-like reduced rank: keep the last axes of the rule
+            if eff == 1 and len(spec) >= 1:
+                return lead + (spec[-1],)
+    return (None,) * ndim  # norms, scalars: replicated
+
+
+def reference_path(name: str) -> str:
+    """A port parameter name as the reference's params path: the layer
+    indices dropped, ``/``-joined (``layers.3.experts.w_gate`` →
+    ``layers/experts/w_gate``; ``blocks.7.in_proj`` → ``blocks/in_proj``)."""
+    return "/".join(part for part in name.split(".") if not part.isdigit())
+
+
+def param_shardings(params, mesh) -> Dict[str, P]:
+    """{name: spec} for a model (an ``nn.Module``) or a mapping name →
+    tensor, over ``mesh`` (an :class:`AbstractMesh` or a :class:`Mesh`).
+    A dim that its axes do not divide stays unsharded."""
+    if isinstance(params, torch.nn.Module):
+        params = dict(params.named_parameters())
+    axes = tuple(mesh.axis_names)
+    out = {}
+    for name, t in params.items():
+        shape = tuple(t.shape)
+        spec = param_spec(reference_path(name), len(shape), 0)
+        sized = []
+        for dim, entry in zip(shape, spec):
+            names = () if entry is None else (
+                entry if isinstance(entry, tuple) else (entry,))
+            names = tuple(a for a in names if a in axes)
+            if names and dim % _axes_size(mesh, names) == 0:
+                sized.append(names if len(names) > 1 else names[0])
+            else:
+                sized.append(None)
+        out[name] = _filter_spec(tuple(sized), axes)
+    return out
+
+
+_CACHE_RULES = [
+    # (pattern, spec-for-trailing-dims after the leading layer-stack dim)
+    (r"^(k|v|xk|xv)$", ("B", "S", TP_AXIS, None)),       # (L, B, S, KV, hd)
+    (r"^wkv$", ("B", TP_AXIS, None, None)),              # (L, B, H, hd, hd)
+    (r"^(tm_x|cm_x)$", ("B", TP_AXIS)),                  # (L, B, d)
+    (r"^ssm$", (None, "B", TP_AXIS, None, None)),        # (nsup, every, B, nh, hd, ds)
+    (r"^conv$", (None, "B", None, TP_AXIS)),             # (nsup, every, B, K-1, C)
+]
+
+
+def _dp_size(mesh) -> int:
+    return int(np.prod([mesh.shape[a] for a in DP_AXES
+                        if a in mesh.axis_names]))
+
+
+def _tp_size(mesh) -> int:
+    return mesh.shape[TP_AXIS] if TP_AXIS in mesh.axis_names else 1
+
+
+def _cache_leaf_spec(name: str, shape, mesh, batch_ok: bool) -> P:
+    axes = tuple(mesh.axis_names)
+    dp, tp = _dp_size(mesh), _tp_size(mesh)
+    for pat, rule in _CACHE_RULES:
+        if not re.search(pat, name):
+            continue
+        spec = [None]  # leading layer-stack dim
+        dims = shape[1:]
+        if rule[0] == "B" and rule[1] == "S":   # k/v caches
+            s_dim, h_dim = dims[1], dims[2]
+            heads_ok = tp > 1 and h_dim % tp == 0
+            # batch → dp; kv-heads → model when divisible, else the
+            # sequence takes the model axis (split-K); batch 1 puts dp on
+            # the sequence (context parallelism)
+            seq_axes = []
+            if batch_ok:
+                spec.append(DP_AXES)
+            else:
+                spec.append(None)
+                if dp > 1:
+                    seq_axes += [a for a in DP_AXES if a in axes]
+            if not heads_ok and TP_AXIS in axes and tp > 1:
+                seq_axes.append(TP_AXIS)
+            sz = int(np.prod([mesh.shape[a] for a in seq_axes])) \
+                if seq_axes else 1
+            if seq_axes and s_dim % sz == 0:
+                spec.append(tuple(seq_axes) if len(seq_axes) > 1
+                            else seq_axes[0])
+            else:
+                spec.append(None)
+            spec.append(TP_AXIS if heads_ok else None)
+            spec.append(None)
+            return _filter_spec(tuple(spec), axes)
+        for dim, entry in zip(dims, rule):
+            if entry == "B":
+                spec.append(DP_AXES if batch_ok else None)
+            elif entry == TP_AXIS:
+                spec.append(TP_AXIS if (tp > 1 and dim % tp == 0) else None)
+            else:
+                spec.append(None)
+        return _filter_spec(tuple(spec), axes)
+    return P()  # pos and the like
+
+
+def cache_shardings(cache: Mapping[str, Any], mesh,
+                    batch_size: int) -> Dict[str, P]:
+    """{name: spec} for a serve cache dict (tensors or shapes; ``pos`` an
+    int). 'B' entries shard the batch over (pod, data) when divisible; a
+    k/v cache whose batch cannot shard (long_500k, batch 1) puts the dp
+    axes on the sequence dim instead — context parallelism."""
+    dp = _dp_size(mesh)
+    batch_ok = dp > 1 and batch_size % dp == 0
+    return {name: _cache_leaf_spec(name, tuple(getattr(v, "shape", ())),
+                                   mesh, batch_ok)
+            for name, v in cache.items()}
+
+
+def batch_spec(mesh) -> P:
+    """Token batches: batch dim over (pod, data)."""
+    return _filter_spec((DP_AXES,), tuple(mesh.axis_names))
+
+
+def cache_spec(mesh, n_kv_heads: int, batch_size: int) -> P:
+    """KV cache (L, B, S, KV, hd): B over (pod, data) when divisible,
+    kv-heads over model when divisible; else sequence over model."""
+    axes = tuple(mesh.axis_names)
+    dp, tp = _dp_size(mesh), _tp_size(mesh)
+    b_entry = DP_AXES if batch_size % max(dp, 1) == 0 and dp > 1 else None
+    if n_kv_heads % max(tp, 1) == 0 and tp > 1:
+        spec = (None, b_entry, None, TP_AXIS, None)
+    else:
+        spec = (None, b_entry, TP_AXIS, None, None)  # context-parallel seq
+    return _filter_spec(spec, axes)

@@ -1,7 +1,7 @@
 """Card tests of the port: the CUDA kernels (catalog, flash attention,
 grouped matmul) against their plain PyTorch versions, ``run_er`` on
-the card against ``run_er`` on the CPU, and the LM families' serving and
-train step on the card against the CPU. Marked ``gpu``; each test asks the
+the card against ``run_er`` on the CPU, the LM families' serving and
+train step, and the cell harness's cells, on the card against the CPU. Marked ``gpu``; each test asks the
 ``cuda`` fixture for the card and skips without one. Run them on the card
 with ``pytest -m gpu``."""
 import numpy as np
@@ -735,3 +735,53 @@ def test_execute_mesh_on_card_equals_cpu(cuda, mesh_shape, comms, compact):
     to_set = (lambda ab: set(zip(ab[0].tolist(), ab[1].tolist())))
     assert to_set(want)
     _near_only(to_set(got), to_set(want), feats, 0.1)
+
+
+def _copy_tree(dst, src):
+    """Copy ``src``'s tensors (a tuple of models, nested dicts, tensors)
+    into ``dst``'s, in place."""
+    if isinstance(dst, torch.nn.Module):
+        dst.load_state_dict(src.state_dict())
+    elif isinstance(dst, tuple):
+        for d, s in zip(dst, src):
+            _copy_tree(d, s)
+    elif isinstance(dst, dict):
+        for k in dst:
+            _copy_tree(dst[k], src[k])
+    elif isinstance(dst, torch.Tensor):
+        dst.copy_(src)
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+@pytest.mark.parametrize("arch", ["smollm-360m", "phi-3-vision-4.2b",
+                                  "granite-moe-1b-a400m", "rwkv6-7b",
+                                  "zamba2-2.7b", "whisper-base"])
+def test_cell_on_card_equals_cpu(cuda, arch, kind):
+    """``steps.build_cell(device="cuda")`` on the one-card test mesh runs,
+    and from the CPU cell's weights, inputs and context (reduced, f32, TF32
+    off, 2 trips of depth) gives the CPU cell's outputs: logits within atol
+    2e-3 / rtol 1e-2, train metrics within rtol 1e-4 and params within atol
+    1e-5; the specs are the CPU cell's."""
+    from repro_torch.configs import Shape, get_config, reduced
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.steps import build_cell
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = reduced(get_config(arch))
+    shape = Shape(kind, 32, 2, kind)
+    cpu = build_cell(cfg, shape, make_test_mesh(devices=["cpu"]), 2,
+                     device="cpu")
+    card = build_cell(cfg, shape, make_test_mesh(1), 2, device="cuda")
+    assert card.in_specs == cpu.in_specs
+    _copy_tree(card.args, cpu.args)
+    got, want = card.fn(*card.args), cpu.fn(*cpu.args)
+    if kind == "train":
+        for k in ("loss", "xent", "grad_norm"):
+            assert float(got[2][k]) == pytest.approx(float(want[2][k]),
+                                                     rel=1e-4), k
+        for (name, a), b in zip(want[0].named_parameters(),
+                                got[0].parameters()):
+            assert torch.allclose(b.cpu(), a, atol=1e-5, rtol=0), name
+    else:
+        assert torch.allclose(got[0].cpu(), want[0], atol=2e-3, rtol=1e-2)
+        assert got[1]["pos"] == want[1]["pos"]

@@ -39,7 +39,10 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.convert, repro_torch.configs, repro_torch.models, "
             "repro_torch.serve, repro_torch.train, "
             "repro_torch.train.checkpoint, repro_torch.data, "
-            "repro_torch.launch.train; "
+            "repro_torch.launch.train, repro_torch.configs.shapes, "
+            "repro_torch.launch.mesh, repro_torch.launch.steps, "
+            "repro_torch.launch.roofline, repro_torch.launch.dryrun, "
+            "repro_torch.launch.inspect_cell; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
