@@ -1476,7 +1476,9 @@ LM_A_FLASH = (  # (B, H, KVH, S, D, causal, scale), each in bf16 and f32
     (1, 8, 4, 1024, 96, False, None),
     (2, 16, 8, 1000, 64, True, -0.125),  # scale < 0 and scale 0
     (1, 8, 8, 512, 96, True, 0.0), (1, 8, 4, 1024, 80, False, -0.125),
-    (2, 32, 32, 1024, 80, True, None))  # zamba2-2.7b prefill (LM-f), G = 1
+    (2, 32, 32, 1024, 80, True, None),  # zamba2-2.7b prefill (LM-f), G = 1
+    (1, 32, 8, 32768, 128, True, None))  # qwen3-4b prefill_32k (DR-2)
+PLAIN_LOGITS_BYTES = 8 << 30  # the plain attention's f32 logits, per call
 
 
 def granite(torch, arch=GRANITE, **over):
@@ -1508,14 +1510,32 @@ def routed_layout(torch, model, cfg, tokens):
     return xg, te, bt, ids.numel(), ids
 
 
+def _plain_attention(torch, q, k, v, causal, scale):
+    """The plain attention route; when all (B, H, S, S) f32 logits would
+    pass ``PLAIN_LOGITS_BYTES``, one query head at a time against its kv
+    head (q head h reads kv head h // G), concatenated."""
+    from repro_torch.kernels import ops
+
+    b, h, s, _ = q.shape
+    if b * h * s * s * 4 <= PLAIN_LOGITS_BYTES:
+        return ops.attention(q, k, v, causal=causal, scale=scale,
+                             impl="torch")
+    g = h // k.shape[1]
+    return torch.cat([ops.attention(q[:, i:i + 1], k[:, i // g:i // g + 1],
+                                    v[:, i // g:i // g + 1], causal=causal,
+                                    scale=scale, impl="torch")
+                      for i in range(h)], dim=1)
+
+
 def lm_kernels_phase(torch, np):
     """LM-a: both LM kernels against their plain versions on the card at
     the main path's shapes; returns per-kernel max |kernel - plain| (and
     flash's largest band error, ``ref.band_rel_err``)."""
     from repro_torch.kernels import ops, ref
 
-    phase("LM-a LM kernels vs plain versions (granite, phi-3-vision and "
-          "zamba2 shapes, head dims 16-128, scales <= 0)")
+    phase("LM-a LM kernels vs plain versions (granite, phi-3-vision, "
+          "zamba2 and qwen3-4b shapes, head dims 16-128, S to 32,768, "
+          "scales <= 0)")
     rng = np.random.default_rng(0)
     errs = {"flash_attention": 0.0, "flash_band": 0.0, "grouped_matmul": 0.0,
             "grouped_band": 0.0}
@@ -1531,8 +1551,7 @@ def lm_kernels_phase(torch, np):
             q, k, v = (normal((b, n, s, d), dt) for n in (h, kvh, kvh))
             got = ops.attention(q, k, v, causal=causal, scale=scale,
                                 impl="cuda")
-            want = ops.attention(q, k, v, causal=causal, scale=scale,
-                                 impl="torch")
+            want = _plain_attention(torch, q, k, v, causal, scale)
             err = (got.float() - want.float()).abs().max().item()
             band = ref.band_rel_err(got, want)
             log(f"flash {name:<8} B={b} H={h} KVH={kvh} S={s} D={d} "
@@ -1548,6 +1567,8 @@ def lm_kernels_phase(torch, np):
             errs["flash_attention"] = max(errs["flash_attention"], err)
             errs["flash_band"] = max(errs["flash_band"], band)
             cases["flash_attention"] += 1
+            del q, k, v, got, want
+    torch.cuda.empty_cache()
 
     cfg, model = granite(torch, n_layers=1)
     ex = model.layers[0].experts
@@ -2522,6 +2543,9 @@ DR_CELLS = (  # (label, arch, shape, the global batch one card holds)
     ("DR-3", GRANITE, "decode_32k", 8),
 )
 DR_STEPS = {"train": (1, 3), "prefill": (0, 1), "decode": (1, 10)}
+# measured peak / predicted peak live + argument bytes: both sides count
+# the same tensors, so the card's allocator may add only a few per cent
+DR_MEMORY_RATIO = (0.95, 1.05)
 DR_KERNEL_STEPS = {"prefill": (1, 3), "decode": (1, 10)}
 
 
@@ -2579,7 +2603,7 @@ def dr_phase(torch, np, smi):
         pred = run_cell(cfg, shape, mesh, "1x1")
         torch.cuda.empty_cache()
         cell = build_cell(cfg, shape, mesh, layer_unroll=scan_trips(cfg),
-                          device="cuda", seed=0)
+                          device="cuda")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         warm, steps = DR_STEPS[kind]
@@ -2617,7 +2641,12 @@ def dr_phase(torch, np, smi):
             f"{pred['collective_s']:.4f} s), peak live + arguments "
             f"{pred_mem / 2**30:.2f} GiB, MFU {pred['mfu']:.4f}; measured / "
             f"predicted: step {row['step_ratio']:.3f}, memory "
-            f"{row['memory_ratio']:.3f}  [{smi}]")
+            f"{row['memory_ratio']:.3f} (limits {DR_MEMORY_RATIO})  [{smi}]")
+        lo, hi = DR_MEMORY_RATIO
+        if not lo <= row["memory_ratio"] <= hi:
+            raise AssertionError(f"{label}: measured / predicted memory "
+                                 f"{row['memory_ratio']:.3f} outside "
+                                 f"{DR_MEMORY_RATIO}")
         if kind in DR_KERNEL_STEPS:
             fast = cfg.replace(attn_impl="kernel") if kind == "prefill" \
                 else cfg.replace(attn_impl="kernel", moe_dispatch="grouped")
@@ -2684,7 +2713,7 @@ def _dr_moe_f32(torch, cfg, shape, mesh, label):
 
     f32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
     cell = build_cell(f32, shape, mesh, layer_unroll=scan_trips(f32),
-                      device="cuda", seed=0)
+                      device="cuda")
     dev, pos = torch.device("cuda"), shape.seq_len - 1
     free = f32.replace(capacity_factor=f32.num_experts / f32.top_k)
     want = make_step(free, "decode", dev, pos)(*cell.args)[0]

@@ -16,12 +16,12 @@ seconds of counting.
 
 A train or prefill cell of a family with a time loop (ssm, hybrid)
 dispatches every time step, ~8 ops a step and layer: one trip of
-zamba2-2.7b at 32,768 steps is ~1.6M meta ops, minutes on a CPU. Those
-cells count trips 0 and 1 instead (the log says which): the zero-trip
-cell (embedding, head, loss, optimizer, no layer) is cheap,
-and the per-trip cost is the difference. ``--no-extrapolate`` counts
-one trip and reports it as it is, as the reference's single u=1
-compile.
+zamba2-2.7b at 32,768 steps is ~1.6M meta ops, minutes on a CPU, and its
+two points take three trips' time. They still count trips 1 and 2: a
+zero-trip cell is no point on the same line (zamba2's shared block goes
+unused, so its gradients are neither made nor accumulated, and the peak
+of live bytes falls elsewhere). ``--no-extrapolate`` counts one trip and
+reports it as it is, as the reference's single u=1 compile.
 """
 from __future__ import annotations
 
@@ -33,8 +33,6 @@ import time
 import traceback
 
 __all__ = ["run_cell", "main"]
-
-_TIME_LOOP = ("ssm", "hybrid")
 
 
 def _count(cfg, shape, mesh, mesh_name, trips):
@@ -49,8 +47,7 @@ def _count(cfg, shape, mesh, mesh_name, trips):
 
 def run_cell(cfg, shape, mesh, mesh_name, verbose=False, extrapolate=True):
     """Count the cell at one trip of depth and, when ``extrapolate``, at
-    a second point (2 trips; 0 for the time-loop cells of the module
-    docstring), and extrapolate to ``scan_trips(cfg)``:
+    two, and extrapolate to ``scan_trips(cfg)``:
     ``true = c1 + (trips−1)·(c2−c1)``. Returns the row."""
     from .roofline import extrapolate_report, model_flops
     from .steps import scan_trips
@@ -60,16 +57,9 @@ def run_cell(cfg, shape, mesh, mesh_name, verbose=False, extrapolate=True):
     rep, count, secs = _count(cfg, shape, mesh, mesh_name, 1)
     how = "none"
     if extrapolate and trips > 1:
-        if cfg.family in _TIME_LOOP and shape.kind != "decode":
-            rep0, _, s0 = _count(cfg, shape, mesh, mesh_name, 0)
-            ops = rep.coll["count"]
-            rep = extrapolate_report(rep0, rep, trips + 1, temp_grows=grows)
-            rep.coll["count"] = ops
-            how, secs = "trips 0,1", secs + s0
-        else:
-            rep2, _, s2 = _count(cfg, shape, mesh, mesh_name, 2)
-            rep = extrapolate_report(rep, rep2, trips, temp_grows=grows)
-            how, secs = "trips 1,2", secs + s2
+        rep2, _, s2 = _count(cfg, shape, mesh, mesh_name, 2)
+        rep = extrapolate_report(rep, rep2, trips, temp_grows=grows)
+        how, secs = "trips 1,2", secs + s2
     # the cell's MODEL_FLOPS are of its depth: the useful work is the
     # full config's
     rep.model_flops_total = model_flops(cfg, shape)

@@ -118,17 +118,17 @@ def _real_inputs(batch, cfg: ModelConfig, gen, dev):
 
 
 def build_cell(cfg: ModelConfig, shape: Shape, mesh,
-               layer_unroll: int = 1, device="meta", seed: int = 0) -> Cell:
+               layer_unroll: int = 1, device="meta") -> Cell:
     """The cell of ``cfg`` at ``layer_unroll`` trips of depth (module
     docstring) for ``shape`` over ``mesh``, on ``device``: meta tensors by
     default; on a real device random weights, inputs and decode context
-    from ``torch.Generator(device).manual_seed(seed)``."""
+    from ``torch.Generator(device).manual_seed(0)``."""
     opt = _opt_config(cfg)        # by the full depth's parameter count
     cfg = _at_depth(cfg, layer_unroll).replace(layer_unroll=layer_unroll)
     dev = resolve_device(device)
     mod = get_model(cfg)
     gen = None if dev.type == "meta" else \
-        torch.Generator(dev).manual_seed(seed)
+        torch.Generator(dev).manual_seed(0)
     batch = input_specs(cfg, shape)
     if gen is not None:
         batch = _real_inputs(batch, cfg, gen, dev)
