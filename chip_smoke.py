@@ -74,9 +74,28 @@ The seventh slice (the mesh, one controller driving every shard):
                matches but for pairs within NEAR of the threshold, counted);
                ``ERService(mesh=...)`` on 8 shards over ER-s's traffic
                (ER-s's 4,892 matches, no build or load in steady state,
-               queries/s and p50/p99 beside ER-s's). Seconds per run and
+               queries/s and p50/p99 beside ER-s's); the same on 4 shards
+               under a fault script of transient errors (the supervisor over
+               the gathered corpus: ER-s's matches, its retries and
+               recovered tiles). Seconds per run and
                stage-1 kernel seconds beside phase 4's; the launches of the
                whole phase (both catalog kernels must launch).
+
+The tenth slice (the torch legs of ``benchmarks/``):
+
+  BL legs     — every ``benchmarks/torch_*.py`` leg's ``measure`` at
+               ``--quick`` sizes on the card (the kernels on the ``cuda``
+               route: K1 in the ER legs, K2 in the services' warm-up, K5 on
+               both dense routes in kernel_bench), beside the same legs on
+               the CPU in two subprocesses (the plain route); every count
+               column (each leg's ``counts``) equal on both, the catalog
+               survivors but for near-threshold flips that the leg printed
+               and held within NEAR; then each leg's ``check`` — its
+               wall-time bars — on the card's rows, the legs with bars run
+               after the CPU side has finished; the phase's launches. A
+               missed wall-time bar is printed with its reading and listed
+               in the summary (the leg's own command line fails on it); an
+               exact check that fails fails the phase.
 
 LM serving, granite-moe-1b-a400m (``repro_torch.serve.generate``):
 
@@ -165,7 +184,7 @@ dry-run's roofline with H100 data-sheet constants):
                same mesh (step, bottleneck, the three terms, peak live +
                argument bytes) and the ratios measured / predicted.
 
-Phases run in the order 1-6, D, ER-t, ER-f, ER-s, ER-m, LM-a, LM-b, LM-c,
+Phases run in the order 1-3, BL, 4-6, D, ER-t, ER-f, ER-s, ER-m, LM-a, LM-b, LM-c,
 LM-e, LM-d, T-a, T-b, LM-f, DR, then 7, the
 summary. The last two lines of standard output are the kernel
 summary and ``{"ok": true, "device": {...}}``. Without a card, or without the repo
@@ -177,6 +196,7 @@ import contextlib
 import ctypes
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
@@ -1254,6 +1274,8 @@ def er_service_phase(torch, np, ds):
 # ---------------------------------------------------------------------------
 
 ER_M_SHARDS = 8
+ER_M_F3_SHARDS = 4             # the sharded service under a fault script
+ER_M_F3_STEPS = (0, 7, 40)     # shard-call steps of its transient faults
 
 
 def _mesh_run(ds, cfg, mesh, label, want):
@@ -1289,7 +1311,9 @@ def er_mesh_phase(torch, np, ds, ds1_rows, er_s):
     whole phase."""
     from repro_torch.er import (ERConfig, ERService, ServiceConfig,
                                 compile_counter, featurize, sn_sort_order)
-    from repro_torch.er.compiler import plan_comms, verify_pairs
+    from repro_torch.er.compiler import (FaultEvent, FaultInjector,
+                                         FaultScript, plan_comms,
+                                         verify_pairs)
     from repro_torch.er.distributed import match_sn_dist
     from repro_torch.kernels import ops
     from repro_torch.sharding import make_er_mesh
@@ -1447,12 +1471,197 @@ def er_mesh_phase(torch, np, ds, ds1_rows, er_s):
         f"{er_s['qps']:.1f} queries/s, p50 {er_s['p50']:.2f} ms, p99 "
         f"{er_s['p99']:.2f} ms); interconnect {_flows(s1)}")
     del svc
+
+    # F3: a sharded-index service takes a fault injector; the supervisor
+    # scores the gathered corpus, and the answer is ER-s's.
+    svc = ERService(corpus, ServiceConfig(backoff_s=0.0),
+                    mesh=make_er_mesh(ER_M_F3_SHARDS,
+                                      devices=["cuda:0"] * ER_M_F3_SHARDS),
+                    device="cuda")
+    svc.warmup()
+    svc.set_fault_injector(FaultInjector(FaultScript(events=tuple(
+        FaultEvent("transient", 0, step) for step in ER_M_F3_STEPS),
+        n_dev=1)))
+    t0 = time.perf_counter()
+    responses, ms = _serve(svc, batches)
+    served = _union(responses, batches)
+    st = svc.stats
+    if served != er_s["served"]:
+        raise AssertionError(f"mesh service under faults: {len(served)} "
+                             f"matches, ER-s {len(er_s['served'])}")
+    if not st["retries"] or not st["recovered_tiles"] or st["degraded"]:
+        raise AssertionError(f"mesh service under faults: {st}")
+    log(f"[ERService mesh {ER_M_F3_SHARDS} shards + FaultScript(transient "
+        f"at steps {ER_M_F3_STEPS})] {len(served)} cross matches, equal to "
+        f"ER-s's (the unsharded service); retries {st['retries']}, "
+        f"recovered tiles {st['recovered_tiles']}, degraded {st['degraded']};"
+        f" p50 {np.percentile(np.asarray(ms), 50):.2f} ms; "
+        f"{time.perf_counter() - t0:.3f} s")
+    del svc
     launches = ops.launch_counts()
     for k in ("pair_scores_catalog_compact", "pair_scores_catalog"):
         if launches[k] == 0:
             raise AssertionError(f"ER-m launched no {k}")
     log(f"ER-m launches {launches}; {time.perf_counter() - t_phase:.1f} s")
     return launches
+
+# ---------------------------------------------------------------------------
+# BL: the torch legs of benchmarks/ on the card
+# ---------------------------------------------------------------------------
+
+# (label, module under benchmarks/, measure, check, count view): every leg
+# but the catalog half of kernel_bench under its own name.
+BL_LEGS = tuple(
+    (label, f"torch_{label}", "measure", "check", "counts") for label in (
+        "fig9_skew", "fig10_reduce_tasks", "fig11_sorted", "fig_sn_window",
+        "fig8_datasets", "fig12_map_output", "schedule_bench", "chaos_bench",
+        "kernel_bench", "serve_bench", "tune_bench", "steal_bench")) + (
+    ("kernel_bench_catalog", "torch_kernel_bench", "measure_catalog",
+     "check_catalog", "catalog_counts"),)
+BL_BARS = ("kernel_bench_catalog", "serve_bench", "tune_bench",
+           "steal_bench")      # wall-time bars: measured after the CPU side
+BL_CPU_THREADS = 3             # per CPU process; two run side by side:
+BL_CPU_SECOND = ("fig10_reduce_tasks", "tune_bench", "steal_bench")
+BL_CPU_SCRIPT = """
+import importlib, json, sys, time
+import torch
+import benchmarks.common as common
+out, threads = sys.argv[1], int(sys.argv[2])
+torch.set_num_threads(threads)
+common.OUT_DIR = out
+for spec in sys.argv[3:]:
+    label, module, fn = spec.split(":")
+    t0 = time.perf_counter()
+    rows = getattr(importlib.import_module("benchmarks." + module), fn)(
+        quick=True, device="cpu")
+    with open(f"{out}/{label}.rows.json", "w") as f:
+        json.dump({"rows": rows, "seconds": time.perf_counter() - t0}, f,
+                  default=float)
+    print(f"[cpu] {label}: {time.perf_counter() - t0:.1f} s", flush=True)
+"""
+
+
+def _bl_near_ok(mod, card, cpu, card_view, cpu_view):
+    """Card and CPU count views that differ only in a column the leg lets
+    differ by its near-threshold flips (``NEAR_COLUMNS``): True when every
+    such difference is within the flips both sides counted (each flip was
+    printed, and held within NEAR of the threshold, by the leg)."""
+    near = getattr(mod, "NEAR_COLUMNS", {})
+    if not near or len(card_view) != len(cpu_view):
+        return False
+    for i, (a, b) in enumerate(zip(card_view, cpu_view)):
+        for col in a:
+            if a[col] == b[col]:
+                continue
+            if col not in near:
+                return False
+            flips = card[i][near[col]] + cpu[i][near[col]]
+            if abs(a[col] - b[col]) > flips:
+                return False
+    return True
+
+
+def bl_phase(torch, np):
+    """BL: every torch leg of ``benchmarks/`` at ``--quick`` sizes on the
+    card (``measure(quick=True, device="cuda")``, the kernels on the
+    ``cuda`` route), its count columns held against the same leg on the
+    CPU (the plain route, which the CPU tests hold against the JAX legs)
+    run in two subprocesses beside it, then each leg's ``check`` (its
+    wall-time bars) on the card's rows. Returns the phase's launches and
+    the missed bars (label -> the check's message)."""
+    import importlib
+    import shutil
+    import benchmarks.common as common
+    from repro_torch.kernels import build, ops
+
+    phase("BL the torch legs of benchmarks/ on the card (--quick), held "
+          "against the same legs on the CPU")
+    t_phase = time.perf_counter()
+    out = build.BUILD_DIR / "bl"
+    shutil.rmtree(out, ignore_errors=True)
+    (out / "cpu").mkdir(parents=True)
+    common.OUT_DIR = str(out / "cuda")
+    env = dict(os.environ, PYTHONPATH=f"{SRC}:{ROOT}",
+               OMP_NUM_THREADS=str(BL_CPU_THREADS))
+    cpu_logs = [open(out / f"cpu{i}.log", "w") for i in range(2)]
+    cpus = [subprocess.Popen(
+        [sys.executable, "-c", BL_CPU_SCRIPT, str(out / "cpu"),
+         str(BL_CPU_THREADS)]
+        + [f"{label}:{mod}:{fn}" for label, mod, fn, _, _ in BL_LEGS
+           if (label in BL_CPU_SECOND) == bool(i)],
+        cwd=ROOT, env=env, stdout=cpu_logs[i], stderr=subprocess.STDOUT)
+        for i in range(2)]
+    mods = {label: importlib.import_module(f"benchmarks.{mod}")
+            for label, mod, _, _, _ in BL_LEGS}
+    rows, seconds, launches = {}, {}, {}
+    ops.reset_launch_counts()
+    try:
+        order = ([leg for leg in BL_LEGS if leg[0] not in BL_BARS]
+                 + [leg for leg in BL_LEGS if leg[0] in BL_BARS])
+        waited = False
+        for label, _, fn, _, _ in order:
+            if label in BL_BARS and not waited:
+                waited = True
+                t0 = time.perf_counter()
+                for i, cpu in enumerate(cpus):
+                    if cpu.wait() != 0:
+                        raise AssertionError(
+                            "BL: the CPU legs failed:\n"
+                            + (out / f"cpu{i}.log").read_text())
+                log(f"[BL] waited {time.perf_counter() - t0:.1f} s for the "
+                    f"CPU legs; the legs with wall-time bars run alone")
+            before = ops.launch_counts()
+            t0 = time.perf_counter()
+            rows[label] = getattr(mods[label], fn)(quick=True, device="cuda")
+            seconds[label] = time.perf_counter() - t0
+            launches[label] = {k: v - before[k]
+                               for k, v in ops.launch_counts().items()
+                               if v - before[k]}
+            log(f"[BL] {label}: {len(rows[label])} rows, "
+                f"{seconds[label]:.1f} s on the card; launches "
+                f"{launches[label]}")
+    finally:
+        for cpu, cpu_log in zip(cpus, cpu_logs):
+            if cpu.poll() is None:
+                cpu.kill()
+                cpu.wait()
+            cpu_log.close()
+    for i in range(2):
+        log("\n".join(line for line in (out / f"cpu{i}.log").read_text()
+                      .splitlines() if line.startswith("[cpu]")))
+
+    for label, _, _, check, view in BL_LEGS:
+        mod = mods[label]
+        saved = json.loads((out / "cpu" / f"{label}.rows.json").read_text())
+        card, host = rows[label], saved["rows"]
+        a, b = getattr(mod, view)(card), getattr(mod, view)(host)
+        if a != b and not _bl_near_ok(mod, card, host, a, b):
+            diff = [(x, y) for x, y in zip(a, b) if x != y][:4]
+            raise AssertionError(f"BL {label}: card rows differ from the "
+                                 f"CPU rows in count columns: {diff} "
+                                 f"({len(a)} vs {len(b)} rows)")
+        log(f"[BL] {label}: {len(a)} rows, count columns "
+            f"{sorted(a[0]) if a else []} equal on the card and the CPU "
+            f"(CPU {saved['seconds']:.1f} s, card {seconds[label]:.1f} s)")
+    missed = {}
+    for label, _, _, check, _ in BL_LEGS:
+        try:
+            getattr(mods[label], check)(rows[label])
+        except AssertionError as e:
+            missed[label] = str(e)
+            log(f"[BL] {label}: WALL-TIME BAR MISSED on the card: {e}")
+        else:
+            log(f"[BL] {label}: check passed on the card")
+
+    total = ops.launch_counts()
+    for k in ("pair_scores_catalog_compact", "pair_scores_catalog",
+              "pair_scores[tma]", "pair_scores[fma]"):
+        if total[k] == 0:
+            raise AssertionError(f"BL launched no {k}")
+    log(f"BL launches {total}; {time.perf_counter() - t_phase:.1f} s")
+    log(json.dumps({"bl_bars_missed": missed}))
+    return total, missed
+
 
 # ---------------------------------------------------------------------------
 # LM serving: granite-moe-1b-a400m through repro_torch.serve.generate
@@ -2765,6 +2974,7 @@ def main() -> int:
     er_s_launches, er_s = er_service_phase(torch, np, ds)
     er_m_launches = er_mesh_phase(torch, np, ds, ds1_rows, er_s)
     del ds, ds1_rows, er_s
+    bl_launches, bl_missed = bl_phase(torch, np)
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 is on for f32 matmuls; the f32 plain "
                              "versions and LM-b assume it off")
@@ -2787,10 +2997,12 @@ def main() -> int:
     for kname, line, launches, path in (
             ("pair_scores_catalog_compact", 409,
              main_launches["pair_scores_catalog_compact"],
-             "DS1 pair_range run_er, default capacity"),
+             "DS1 pair_range run_er, default capacity; bl_launches: phase "
+             "BL, the torch legs of benchmarks/ at --quick"),
             ("pair_scores_catalog", 301,
              overflow_launches["pair_scores_catalog"],
-             "DS1 pair_range run_er, compact_capacity=16 (overflow path)")):
+             "DS1 pair_range run_er, compact_capacity=16 (overflow path); "
+             "bl_launches: phase BL (the services' warm-up)")):
         summary.append(dict(
             name=kname, route="cuda",
             source="src/repro_torch/csrc/pair_sim.cu",
@@ -2798,6 +3010,7 @@ def main() -> int:
             launches=launches, path=path,
             er_s_launches=er_s_launches[kname],
             er_m_launches=er_m_launches[kname],
+            bl_launches=bl_launches[kname],
             max_abs_err=kstats[kname]["max_abs_err"],
             near_threshold_flips=kstats[kname]["near_flips"],
             compared_cases=kstats[kname]["cases"],
@@ -2812,8 +3025,12 @@ def main() -> int:
         launches=dense_launches["all"],
         launches_tma=dense_launches["tma"],
         launches_fma=dense_launches["fma"],
+        bl_launches=bl_launches["pair_scores"],
+        bl_launches_tma=bl_launches["pair_scores[tma]"],
+        bl_launches_fma=bl_launches["pair_scores[fma]"],
         path="ops.pair_scores (phase D: the test sweep, kernel_bench's "
-             "shapes and the first 16,384 DS1 titles, f32 and bf16); times "
+             "shapes and the first 16,384 DS1 titles, f32 and bf16; "
+             "bl_launches: phase BL, torch_kernel_bench); times "
              "on the DS1 case, triangular, 128x128, f32 (bf16_* in bf16; "
              "bf16_earlier_ms: the FMA kernel in turns in this run; "
              "bf16_fill_ms: fill_ of the same output; bf16_two_copies_ms: "
@@ -2878,6 +3095,7 @@ def main() -> int:
                   f"{GROUPED_BAND_TOL['bfloat16']} bf16",
         **pre, **{f"decode_{k}": v for k, v in dec.items()}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(f"BL wall-time bars missed on this card: {bl_missed or 'none'}")
     log(smi)
     log(json.dumps({"kernels": summary}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -62,7 +62,7 @@ def _pad_pow2(t: int, cap: int) -> int:
 #   kernel_seconds    — wall time from launch until the counts (or the
 #                       mask) are ready on the device (a mesh launch's
 #                       gathers included)
-#   decode_seconds    — device→host copy of the survivors + host decode
+#   decode_seconds    — the survivors' decode and their copy to the host
 #   interconnect      — bytes RECEIVED per device, per data flow, summed
 #                       over mesh launches (each launch re-runs its
 #                       gather), from the exact formulas of
@@ -99,6 +99,97 @@ def _decode_packed(packed: np.ndarray, counts: np.ndarray,
     return rows_a, rows_b
 
 
+def _decode_on_device(packed: torch.Tensor, counts: torch.Tensor,
+                      tiles: torch.Tensor, tot: int, bm: int, bn: int
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+    """:func:`_decode_packed` on the tensors' device: packed (T, ≥ max
+    count) slots, exact (T,) counts whose sum ``tot`` (> 0) the host
+    already holds, (T, NCOLS) tiles → global (rows_a, rows_b), brought to
+    the host in one copy."""
+    dev = counts.device
+    counts = counts.to(torch.int64)
+    ti = torch.repeat_interleave(torch.arange(counts.numel(), device=dev),
+                                 counts, output_size=tot)
+    slot = (torch.arange(tot, device=dev)
+            - (torch.cumsum(counts, 0) - counts)[ti])
+    flat = packed[ti, slot].to(torch.int64)
+    rows = torch.stack([tiles[ti, A_TILE].to(torch.int64) * bm + flat // bn,
+                        tiles[ti, B_TILE].to(torch.int64) * bn + flat % bn])
+    rows = rows.cpu().numpy()
+    return rows[0], rows[1]
+
+
+def _score_mask(fa, fb, chunk, chunk_t, *, threshold, bm, bn, impl, dev):
+    """One chunk through the dense-mask kernel → global (rows_a, rows_b)."""
+    from ...kernels import ops
+
+    t0 = time.perf_counter()
+    mask = ops.pair_scores_catalog(fa, fb, chunk_t, threshold=threshold,
+                                   block_m=bm, block_n=bn, impl=impl)
+    synchronize([dev])
+    t1 = time.perf_counter()
+    stage1_stats["kernel_seconds"] += t1 - t0
+    stage1_stats["nonzero_decodes"] += 1
+    ti, ii, jj = (x.cpu().numpy() for x in torch.nonzero(mask, as_tuple=True))
+    out = (chunk[ti, A_TILE].astype(np.int64) * bm + ii,
+           chunk[ti, B_TILE].astype(np.int64) * bn + jj)
+    stage1_stats["decode_seconds"] += time.perf_counter() - t1
+    return out
+
+
+# Packed survivor slots (bytes) launched before any of them is read back:
+# a bound on stage 1's device memory, not a tuning knob.
+_INFLIGHT_BYTES = 1 << 30
+
+
+def _score_compact(fa, fb, group, *, threshold, bm, bn, capacity, impl,
+                   dev) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """Chunks through the compact kernel, every one launched before any is
+    read: the exact counts of all come back in one copy, then the
+    survivors, decoded on the device, in a second. A chunk whose count
+    passes ``capacity`` is re-scored through the dense mask. One
+    (rows_a, rows_b) per chunk, in order."""
+    from ...kernels import ops
+
+    t0 = time.perf_counter()
+    launched = [ops.pair_scores_catalog_compact(
+        fa, fb, chunk_t, threshold=threshold, block_m=bm, block_n=bn,
+        capacity=capacity, impl=impl) for _, chunk_t in group]
+    counts_t = torch.cat([c for _, c in launched]).reshape(-1)
+    counts = counts_t.cpu().numpy().astype(np.int64)
+    t1 = time.perf_counter()
+    stage1_stats["kernel_seconds"] += t1 - t0
+    ends = np.cumsum([chunk.shape[0] for chunk, _ in group])
+    per_chunk = np.split(counts, ends[:-1])
+    kmax = [int(c.max(initial=0)) for c in per_chunk]
+    good = [i for i, k in enumerate(kmax) if k <= capacity]
+    stage1_stats["compact_decodes"] += len(good)
+    totals = [int(per_chunk[i].sum()) for i in good]
+    ra = rb = np.zeros(0, np.int64)
+    if sum(totals):
+        if len(good) < len(group):
+            counts_t = torch.cat([counts_t[ends[i] - len(group[i][0]):ends[i]]
+                                  for i in good])
+        k = max(kmax[i] for i in good)
+        ra, rb = _decode_on_device(
+            torch.cat([launched[i][0][:, :k] for i in good]), counts_t,
+            torch.cat([group[i][1] for i in good]), sum(totals), bm, bn)
+    stage1_stats["decode_seconds"] += time.perf_counter() - t1
+    cuts = np.cumsum(totals)[:-1]
+    out = [None] * len(group)
+    for i, a, b in zip(good, np.split(ra, cuts), np.split(rb, cuts)):
+        out[i] = (a, b)
+    for i, chunk_out in enumerate(out):
+        if chunk_out is None:
+            # Exact counts flagged dropped survivors: re-score this chunk
+            # through the dense mask (exactness over speed).
+            stage1_stats["compact_overflows"] += 1
+            chunk, chunk_t = group[i]
+            out[i] = _score_mask(fa, fb, chunk, chunk_t, threshold=threshold,
+                                 bm=bm, bn=bn, impl=impl, dev=dev)
+    return out
+
+
 def score_catalog(feats_a, catalog: TileCatalog, feats_b=None, *,
                   threshold: float, impl: str = "auto",
                   chunk_tiles: int = 1024, compact: bool = True,
@@ -106,24 +197,25 @@ def score_catalog(feats_a, catalog: TileCatalog, feats_b=None, *,
                   device="cuda") -> Tuple[np.ndarray, np.ndarray]:
     """Stage 1 for a whole catalog on one device: survivor candidate pairs.
 
-    Features (numpy or tensors) move to ``device`` once. With ``compact``
-    the kernel's epilogue packs each tile's survivors on the device; only
-    the exact counts and the first ``max(count)`` slots of each tile come
-    back to the host, and the decode is O(survivors). ``compact_capacity``
-    bounds the packed slots per tile (default bm·bn, which can never
-    overflow); a chunk whose exact count exceeds it is re-scored through
-    the dense mask — still exact, counted in
-    ``stage1_stats['compact_overflows']``. Returns two int64 arrays.
+    Features (numpy or tensors) and the padded catalog move to ``device``
+    once. With ``compact`` the kernel's epilogue packs each tile's
+    survivors on the device; the chunks are launched in groups of up to
+    ``_INFLIGHT_BYTES`` of packed slots, each group's exact counts come
+    back in one copy, and its survivors are decoded on the device and
+    come back in a second (O(survivors), no scan of dead cells).
+    ``compact_capacity`` bounds the packed slots per tile (default bm·bn,
+    which can never overflow); a chunk whose exact count exceeds it is
+    re-scored through the dense mask — still exact, counted in
+    ``stage1_stats['compact_overflows']``. Returns two int64 arrays, in
+    chunk order.
     """
-    from ...kernels import ops
-
     dev = resolve_device(device)
     fa = _to_device(feats_a, dev)
     fb = fa if feats_b is None else _to_device(feats_b, dev)
     tiles = catalog.tiles
     bm, bn = catalog.block_m, catalog.block_n
     capacity = compact_capacity if compact_capacity is not None else bm * bn
-    out_a, out_b = [], []
+    chunks = []
     for lo in range(0, tiles.shape[0], chunk_tiles):
         chunk = tiles[lo:lo + chunk_tiles]
         padded = _pad_pow2(chunk.shape[0], chunk_tiles)
@@ -131,42 +223,27 @@ def score_catalog(feats_a, catalog: TileCatalog, feats_b=None, *,
             # Empty entries: zero windows (r0 == r1) mask everything out.
             pad = np.zeros((padded - chunk.shape[0], NCOLS), np.int32)
             chunk = np.concatenate([chunk, pad], axis=0)
-        chunk_t = torch.from_numpy(np.ascontiguousarray(chunk)).to(dev)
-        if compact:
-            t0 = time.perf_counter()
-            packed, counts = ops.pair_scores_catalog_compact(
-                fa, fb, chunk_t, threshold=threshold, block_m=bm,
-                block_n=bn, capacity=capacity, impl=impl)
-            counts = counts.reshape(-1).cpu().numpy().astype(np.int64)
-            t1 = time.perf_counter()
-            stage1_stats["kernel_seconds"] += t1 - t0
-            kmax = int(counts.max(initial=0))
-            if kmax <= capacity:
-                stage1_stats["compact_decodes"] += 1
-                ra, rb = _decode_packed(packed[:, :kmax].cpu().numpy(),
-                                        counts, chunk, bm, bn)
-                stage1_stats["decode_seconds"] += time.perf_counter() - t1
-                out_a.append(ra)
-                out_b.append(rb)
-                continue
-            # Exact counts flagged dropped survivors: re-score this
-            # chunk through the dense mask (exactness over speed).
-            stage1_stats["compact_overflows"] += 1
-        t0 = time.perf_counter()
-        mask = ops.pair_scores_catalog(fa, fb, chunk_t, threshold=threshold,
-                                       block_m=bm, block_n=bn, impl=impl)
-        synchronize([dev])
-        t1 = time.perf_counter()
-        stage1_stats["kernel_seconds"] += t1 - t0
-        stage1_stats["nonzero_decodes"] += 1
-        ti, ii, jj = (x.cpu().numpy()
-                      for x in torch.nonzero(mask, as_tuple=True))
-        out_a.append(chunk[ti, A_TILE].astype(np.int64) * bm + ii)
-        out_b.append(chunk[ti, B_TILE].astype(np.int64) * bn + jj)
-        stage1_stats["decode_seconds"] += time.perf_counter() - t1
-    if not out_a:
+        chunks.append(chunk)
+    if not chunks:
         return np.zeros(0, np.int64), np.zeros(0, np.int64)
-    return np.concatenate(out_a), np.concatenate(out_b)
+    on_dev = torch.split(torch.from_numpy(np.ascontiguousarray(
+        np.concatenate(chunks))).to(dev), [c.shape[0] for c in chunks])
+    kw = dict(threshold=threshold, bm=bm, bn=bn, impl=impl, dev=dev)
+    out, group, group_bytes = [], [], 0
+    for chunk, chunk_t in zip(chunks, on_dev):
+        if not compact:
+            out.append(_score_mask(fa, fb, chunk, chunk_t, **kw))
+            continue
+        nbytes = chunk.shape[0] * capacity * 4
+        if group and group_bytes + nbytes > _INFLIGHT_BYTES:
+            out += _score_compact(fa, fb, group, capacity=capacity, **kw)
+            group, group_bytes = [], 0
+        group.append((chunk, chunk_t))
+        group_bytes += nbytes
+    if group:
+        out += _score_compact(fa, fb, group, capacity=capacity, **kw)
+    return (np.concatenate([a for a, _ in out]),
+            np.concatenate([b for _, b in out]))
 
 
 # ---------------------------------------------------------------------------

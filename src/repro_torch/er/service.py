@@ -369,6 +369,7 @@ class ERService:
             else GeometryCostModel(alpha=cfg.feedback_alpha))
         self.tune_report: Optional[TuneReport] = None
         self.fault_injector: Optional[FaultInjector] = None
+        self._gathered: Dict[int, tuple] = {}   # id -> (sharded, gathered)
         self._fail_streak = np.zeros(self._n_exec, np.int64)
         self._breaker_open: Dict[int, float] = {}   # device → eviction time
         # Serializes mutation of host-side shared state (vocab, BDMs,
@@ -559,9 +560,15 @@ class ERService:
         supervision enabled (``cfg.exec_devices`` or an installed fault
         injector), stage 1 runs through :func:`execute_supervised`
         instead — per-shard completion records, tile-granular recovery,
-        graceful degradation."""
+        graceful degradation; on a mesh it scores the corpus features
+        gathered onto ``self.device``, as the JAX package's supervisor
+        scores its sharded array."""
         cfg = self.cfg
         catalog = pad_catalog(catalog, cfg.tile_chunk)
+        if self._use_supervisor:
+            q = torch.from_numpy(q_buf).to(self.device)
+            return self._score_supervised(self._on_device(feats_a), catalog,
+                                          q, ctx)
         if self.mesh is not None:
             use_comms = (comms_plan is not None
                          and comms_plan.policy != "flat"
@@ -578,8 +585,6 @@ class ERService:
                 comms_plan=plan, chunk_tiles=cfg.tile_chunk,
                 fixed_chunks=True, compact_capacity=cfg.compact_capacity)
         q = torch.from_numpy(q_buf).to(self.device)
-        if self._use_supervisor:
-            return self._score_supervised(feats_a, catalog, q, ctx)
         return execute(
             catalog, feats_a, q, threshold=self._stage1,
             impl=cfg.kernel_impl, chunk_tiles=cfg.tile_chunk,
@@ -597,13 +602,29 @@ class ERService:
         """Install (or clear) a chaos :class:`FaultInjector` — every
         supervised shard call and breaker probe flows through it. Install
         AFTER :meth:`warmup` so warmup traffic doesn't consume script
-        events. The supervisor drives logical shards of one device, so a
-        sharded-index service (``mesh=``) takes none."""
-        if injector is not None and self.mesh is not None:
-            raise ValueError("supervised execution composes with mesh=None "
-                             "only; a sharded-index service takes no fault "
-                             "injector")
+        events. On a sharded-index service (``mesh=``) the supervisor
+        drives ``max(cfg.exec_devices, 1)`` logical shards of the mesh's
+        first device, over the gathered corpus features (gathered once,
+        on first use, and dropped when the injector is cleared)."""
         self.fault_injector = injector
+        if injector is None:
+            self._gathered.clear()
+
+    def _on_device(self, feats):
+        """``feats`` on ``self.device``: a row-sharded corpus matrix is
+        gathered by :meth:`_gather` on its first use and kept."""
+        if not isinstance(feats, Sharded):
+            return feats
+        hit = self._gathered.get(id(feats))
+        if hit is None:
+            hit = self._gathered[id(feats)] = (feats, self._gather(feats))
+        return hit[1]
+
+    def _gather(self, feats: Sharded) -> torch.Tensor:
+        """A row-sharded matrix on ``self.device``: row blocks in order,
+        column blocks side by side."""
+        return torch.cat([torch.cat([b.to(self.device) for b in row], dim=1)
+                          for row in feats.blocks], dim=0)
 
     def _exec_mask(self) -> np.ndarray:
         """Healthy mask over the logical execution devices: everything

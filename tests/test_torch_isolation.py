@@ -1,7 +1,9 @@
-"""The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX or the JAX package ``repro`` (an AST walk,
-so imports inside functions count too), and importing the port pulls
-neither into the process."""
+"""The port stands alone: no module of ``src/repro_torch``, no torch leg
+of the benchmarks (``benchmarks/torch_*.py``) and not ``chip_smoke.py``
+imports JAX or the JAX package ``repro`` (an AST walk, so imports inside
+functions count too); a torch leg imports no JAX leg (of ``benchmarks/``
+only ``common`` and the other ``torch_*`` modules, relative or not); and
+importing the port or its legs pulls neither into the process."""
 import ast
 import os
 import subprocess
@@ -13,7 +15,8 @@ import pytest
 pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+LEGS = sorted((ROOT / "benchmarks").glob("torch_*.py"))
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + LEGS + [
     ROOT / "chip_smoke.py"]
 
 
@@ -23,6 +26,51 @@ def _imported(tree):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             yield node.module or ""
+
+
+def _benchmark_imports(tree):
+    """The modules of ``benchmarks/`` that ``tree`` imports: relative
+    imports (``from .x import y``, ``from . import x``) and absolute
+    ``benchmarks.x`` ones."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom):
+            parts = (node.module or "").split(".")
+            if node.level == 0 and parts[0] != "benchmarks":
+                continue
+            if node.level == 0:
+                parts = parts[1:]
+            if parts and parts[0]:
+                yield parts[0]
+            else:
+                yield from (a.name for a in node.names)
+        elif isinstance(node, ast.Import):
+            for a in node.names:
+                parts = a.name.split(".")
+                if parts[0] == "benchmarks" and len(parts) > 1:
+                    yield parts[1]
+
+
+def _bad_benchmark_imports(source: str):
+    return [m for m in _benchmark_imports(ast.parse(source))
+            if m != "common" and not m.startswith("torch_")]
+
+
+def test_a_jax_leg_import_is_caught():
+    assert _bad_benchmark_imports(
+        "from .serve_bench import skewed_corpus") == ["serve_bench"]
+    assert _bad_benchmark_imports("from . import chaos_bench") == [
+        "chaos_bench"]
+    assert _bad_benchmark_imports(
+        "def f():\n    import benchmarks.fig9_skew") == ["fig9_skew"]
+    assert _bad_benchmark_imports(
+        "from .common import timer\nfrom .torch_serve_bench import x\n"
+        "from benchmarks import torch_common") == []
+
+
+@pytest.mark.parametrize("path", LEGS, ids=lambda p: p.name)
+def test_legs_import_no_jax_leg(path):
+    bad = _bad_benchmark_imports(path.read_text())
+    assert not bad, f"{path.name} imports the JAX legs {bad}"
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -42,11 +90,12 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.launch.train, repro_torch.configs.shapes, "
             "repro_torch.launch.mesh, repro_torch.launch.steps, "
             "repro_torch.launch.roofline, repro_torch.launch.dryrun, "
-            "repro_torch.launch.inspect_cell; "
+            "repro_torch.launch.inspect_cell, "
+            + ", ".join(f"benchmarks.{p.stem}" for p in LEGS) + "; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True,
-                         env={**os.environ,
-                              "PYTHONPATH": str(ROOT / "src")})
+                         cwd=ROOT, env={**os.environ, "PYTHONPATH": str(
+                             ROOT / "src") + os.pathsep + str(ROOT)})
     assert out.stdout.strip() == "[]"

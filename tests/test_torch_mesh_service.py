@@ -21,7 +21,8 @@ from repro_torch.core.two_source import (TwoSourceBDM,  # noqa: E402
 from repro_torch.er import (ERConfig, ERService, ServiceConfig,  # noqa: E402
                             compile_counter, cross_restrict, make_products,
                             run_er, stage1_stats)
-from repro_torch.er.compiler import FaultInjector, FaultScript  # noqa: E402
+from repro_torch.er.compiler import (FaultEvent, FaultInjector,  # noqa: E402
+                                     FaultScript)
 from repro_torch.er.distributed import (device_assignment,  # noqa: E402
                                         match_catalog_2src_dist,
                                         plan_tiles_for_devices)
@@ -134,5 +135,89 @@ def test_mesh_service_checks():
     with pytest.raises(ValueError, match="mesh=None"):
         ERService(CORPUS[:40], _cfg(exec_devices=2), mesh=mesh, device="cpu")
     svc = ERService(CORPUS[:40], _cfg(), mesh=mesh, device="cpu")
-    with pytest.raises(ValueError, match="fault injector"):
-        svc.set_fault_injector(FaultInjector(FaultScript.random(0, 2, 1)))
+    # A sharded-index service takes a fault injector, as the JAX
+    # package's does (its answer under a script: the test below).
+    injector = FaultInjector(FaultScript.random(0, 1, 1))
+    svc.set_fault_injector(injector)
+    assert svc.fault_injector is injector and svc._use_supervisor
+
+
+FAULT_BATCHES = [QUERIES[:31], QUERIES[31:]]
+FAULT_EVENTS = (("transient", 0, 0), ("corrupt", 0, 3), ("transient", 0, 5))
+
+JAX_FAULT_SERVICE = f"""
+import sys
+import jax, numpy as np
+from repro.er import ERService, ServiceConfig, make_products
+from repro.er.compiler import FaultEvent, FaultInjector, FaultScript
+try:
+    mesh = jax.make_mesh((4,), ("data",),
+                         axis_types=(jax.sharding.AxisType.Auto,))
+except AttributeError:
+    mesh = jax.make_mesh((4,), ("data",))
+ds = make_products(600, seed=5)
+corpus = list(ds.titles[:500]) + [""]
+queries = list(ds.titles[500:560]) + ["", "@@@ fresh block"]
+batches = [queries[:31], queries[31:]]
+cfg = ServiceConfig(r=16, m=8, query_buckets=(8, 32, 64), tile_chunk=64,
+                    feature_dim=128, max_len=48, backoff_s=0.0)
+svc = ERService(corpus, cfg, mesh=mesh)
+svc.warmup()
+svc.set_fault_injector(FaultInjector(FaultScript(events=tuple(
+    FaultEvent(k, d, s) for k, d, s in {FAULT_EVENTS!r}), n_dev=1)))
+out = {{}}
+for i, b in enumerate(batches):
+    resp = svc.match(b)
+    out[f"pairs_{{i}}"] = np.array(sorted(resp), np.int64).reshape(-1, 2)
+    out[f"meta_{{i}}"] = np.array([resp.attempts, resp.recovered_tiles,
+                                  resp.coverage == 1.0])
+out["stats"] = np.array([svc.stats["retries"], svc.stats["recovered_tiles"],
+                         svc.stats["degraded"]])
+np.savez(sys.argv[1], **out)
+"""
+
+
+def test_sharded_service_under_a_fault_script_equals_reference(tmp_path):
+    """F3: a 4-shard CPU mesh service under a FaultScript gives the JAX
+    mesh service's answer under the same script — the match set, the
+    supervisor's rounds and recovered tiles per batch, and the retries —
+    and the failure-free service's match set."""
+    ref = tp.jax_mesh_reference(JAX_FAULT_SERVICE, tmp_path / "ref.npz")
+    cfg = _cfg(backoff_s=0.0)
+    quiet = ERService(CORPUS, cfg, device="cpu")
+    svc = ERService(CORPUS, cfg, mesh=tp.cpu_mesh(4), device="cpu")
+    svc.warmup()
+    svc.set_fault_injector(FaultInjector(FaultScript(events=tuple(
+        FaultEvent(k, d, s) for k, d, s in FAULT_EVENTS), n_dev=1)))
+    for i, batch in enumerate(FAULT_BATCHES):
+        resp = svc.match(batch)
+        assert set(resp) == {tuple(p) for p in ref[f"pairs_{i}"].tolist()}
+        assert set(resp) == set(quiet.match(batch))
+        assert [resp.attempts, resp.recovered_tiles,
+                resp.coverage == 1.0] == ref[f"meta_{i}"].tolist()
+    assert [svc.stats["retries"], svc.stats["recovered_tiles"],
+            svc.stats["degraded"]] == ref["stats"].tolist()
+    assert svc.stats["retries"] >= 2 and svc.stats["recovered_tiles"] > 0
+
+
+def test_sharded_service_gathers_the_corpus_once():
+    """Under an injector the mesh service gathers each sharded corpus
+    matrix onto its device on the first request only, and drops the
+    copies when the injector is cleared."""
+    svc = ERService(CORPUS, _cfg(backoff_s=0.0), mesh=tp.cpu_mesh(4),
+                    device="cpu")
+    svc.warmup()
+    gathered = []
+    gather = svc._gather
+    svc._gather = lambda feats: gathered.append(feats) or gather(feats)
+    svc.set_fault_injector(FaultInjector(FaultScript(events=(), n_dev=1)))
+    first = set(svc.match(FAULT_BATCHES[0]))
+    n_first = len(gathered)
+    assert n_first
+    assert set(svc.match(FAULT_BATCHES[0])) == first
+    assert len(gathered) == n_first          # the same request: no gather
+    svc.match(FAULT_BATCHES[1])
+    # no matrix is gathered twice
+    assert len({id(f) for f in gathered}) == len(gathered)
+    svc.set_fault_injector(None)
+    assert not svc._gathered

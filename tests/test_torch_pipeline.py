@@ -75,6 +75,52 @@ def test_capacity_four_forces_the_exact_mask_fallback(skewed):
     assert_same_result(got, want)
 
 
+@pytest.mark.parametrize("capacity", [None, 18])
+@pytest.mark.parametrize("inflight", [None, 3 * 8 * 18 * 4])
+def test_score_catalog_arrays_equal_reference_package(monkeypatch, capacity,
+                                                      inflight):
+    """``score_catalog`` over many chunks — launched in one group, or in
+    groups of three chunks of packed slots — returns the JAX package's
+    arrays element for element, in order, also where some chunks overflow
+    the compact capacity and go through the dense mask."""
+    import importlib
+
+    import repro.er.compiler as jc
+    from repro_torch.core import compute_bdm, plan_block_split
+
+    tex = importlib.import_module("repro_torch.er.compiler.execute")
+
+    if inflight is not None:
+        monkeypatch.setattr(tex, "_INFLIGHT_BYTES", inflight)
+    rng = np.random.default_rng(3)
+    bid = np.sort(rng.integers(0, 12, 600))
+    bdm = compute_bdm(bid, np.arange(600) % 4, 12, 4)
+    job = ter.plan_to_job(plan_block_split(bdm, 8))
+    cat = ter.lower(job, 32, 16)
+    feats = rng.standard_normal((600, 32)).astype(np.float32)
+    feats /= np.linalg.norm(feats, axis=1, keepdims=True)
+    kw = dict(threshold=0.3, chunk_tiles=8, compact_capacity=capacity)
+    before = dict(stage1_stats)
+    ga, gb = ter.score_catalog(feats, cat, device="cpu", **kw)
+    wa, wb = jc.score_catalog(feats, jc.lower(jc.plan_to_job(
+        _jax_block_split(bid)), 32, 16), impl="xla", **kw)
+    np.testing.assert_array_equal(ga, wa)
+    np.testing.assert_array_equal(gb, wb)
+    chunks = -(-cat.tiles.shape[0] // 8)
+    overflows = stage1_stats["compact_overflows"] - before[
+        "compact_overflows"]
+    assert chunks > 6 and ga.size
+    assert stage1_stats["compact_decodes"] - before["compact_decodes"] \
+        == chunks - overflows
+    assert (0 < overflows < chunks) if capacity else overflows == 0
+
+
+def _jax_block_split(bid):
+    import repro.core as jcore
+    return jcore.plan_block_split(jcore.compute_bdm(
+        bid, np.arange(bid.size) % 4, 12, 4), 8)
+
+
 @pytest.mark.parametrize("option", [
     dict(mesh=cpu_mesh(2)),
     dict(fault_injector=ter.FaultInjector(ter.FaultScript((), 1))),

@@ -305,3 +305,24 @@ def lm_long_prompt(arch, seed=2):
     diff = float(np.abs(got.numpy() - np.asarray(want)).max())
     return diff, {n: (g.numpy(), ref[n].detach().numpy())
                   for n, g in grads.items()}
+
+
+# ---------------------------------------------------------------------------
+# Benchmark legs (tests/test_torch_bench_*.py)
+# ---------------------------------------------------------------------------
+
+def bench_legs(name: str, monkeypatch, out_dir):
+    """The JAX leg ``benchmarks/<name>.py`` and the port's
+    ``benchmarks/torch_<name>.py``, with ``benchmarks.common.OUT_DIR``
+    pointed at ``out_dir`` so that neither writes into the tree."""
+    import importlib
+    import os
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    common = importlib.import_module("benchmarks.common")
+    monkeypatch.setattr(common, "OUT_DIR", str(out_dir))
+    return (importlib.import_module(f"benchmarks.{name}"),
+            importlib.import_module(f"benchmarks.torch_{name}"))
