@@ -95,7 +95,28 @@ The tenth slice (the torch legs of ``benchmarks/``):
                after the CPU side has finished; the phase's launches. A
                missed wall-time bar is printed with its reading and listed
                in the summary (the leg's own command line fails on it); an
-               exact check that fails fails the phase.
+               exact check that fails fails the phase. The mesh legs
+               (eleventh slice): ``torch_mesh_bench`` and
+               ``torch_fig13_scaling`` at ``--quick`` on 16, 4 x 2, 2 and 4
+               logical shards of cuda:0 (the bytes per shard among the
+               count columns; the ring bar, 2x below flat at 16 shards,
+               fails the phase), then ``torch_mesh_bench`` at its full
+               size (8 and 16 shards of 4,000 titles, a (4, 2) mesh of
+               2,000) under its own asserts.
+
+The eleventh slice (the torch examples):
+
+  EX examples — each ``examples/torch_*.py``'s ``main`` in-process with
+               ``--device cuda``, then ``--device cpu``: the five ER
+               examples' returned counts equal on both; ``torch_serve_lm``
+               (reduced smollm-360m, 4 x 32 -> 32 tokens at temperature 0.8)
+               its shape and token range on both; ``torch_train_lm`` (the
+               ~100M config) 20 steps on the card, every loss finite and the
+               mean of the last 5 below the first, and 2 finite steps on the
+               CPU; the launches of the card runs (K1, and K2 through the
+               service's warm-up, must launch); both catalog kernels against
+               their plain versions on the chaos drill's 64 x 64 catalog at
+               width 64.
 
 LM serving, granite-moe-1b-a400m (``repro_torch.serve.generate``):
 
@@ -184,7 +205,7 @@ dry-run's roofline with H100 data-sheet constants):
                same mesh (step, bottleneck, the three terms, peak live +
                argument bytes) and the ratios measured / predicted.
 
-Phases run in the order 1-3, BL, 4-6, D, ER-t, ER-f, ER-s, ER-m, LM-a, LM-b, LM-c,
+Phases run in the order 1-6, D, ER-t, ER-f, ER-s, ER-m, BL, EX, LM-a, LM-b, LM-c,
 LM-e, LM-d, T-a, T-b, LM-f, DR, then 7, the
 summary. The last two lines of standard output are the kernel
 summary and ``{"ok": true, "device": {...}}``. Without a card, or without the repo
@@ -1515,13 +1536,15 @@ BL_LEGS = tuple(
     (label, f"torch_{label}", "measure", "check", "counts") for label in (
         "fig9_skew", "fig10_reduce_tasks", "fig11_sorted", "fig_sn_window",
         "fig8_datasets", "fig12_map_output", "schedule_bench", "chaos_bench",
-        "kernel_bench", "serve_bench", "tune_bench", "steal_bench")) + (
+        "kernel_bench", "mesh_bench", "fig13_scaling", "serve_bench",
+        "tune_bench", "steal_bench")) + (
     ("kernel_bench_catalog", "torch_kernel_bench", "measure_catalog",
      "check_catalog", "catalog_counts"),)
 BL_BARS = ("kernel_bench_catalog", "serve_bench", "tune_bench",
            "steal_bench")      # wall-time bars: measured after the CPU side
 BL_CPU_THREADS = 3             # per CPU process; two run side by side:
-BL_CPU_SECOND = ("fig10_reduce_tasks", "tune_bench", "steal_bench")
+BL_CPU_SECOND = ("fig10_reduce_tasks", "fig11_sorted", "serve_bench",
+                 "tune_bench", "steal_bench")
 BL_CPU_SCRIPT = """
 import importlib, json, sys, time
 import torch
@@ -1567,8 +1590,10 @@ def bl_phase(torch, np):
     ``cuda`` route), its count columns held against the same leg on the
     CPU (the plain route, which the CPU tests hold against the JAX legs)
     run in two subprocesses beside it, then each leg's ``check`` (its
-    wall-time bars) on the card's rows. Returns the phase's launches and
-    the missed bars (label -> the check's message)."""
+    wall-time bars; a missed byte bar, as the mesh leg's, fails) on the
+    card's rows, then ``torch_mesh_bench`` at its full size under its own
+    asserts. Returns the phase's launches and the missed wall-time bars
+    (label -> the check's message)."""
     import importlib
     import shutil
     import benchmarks.common as common
@@ -1648,10 +1673,31 @@ def bl_phase(torch, np):
         try:
             getattr(mods[label], check)(rows[label])
         except AssertionError as e:
+            if label not in BL_BARS:
+                raise AssertionError(f"BL {label}: check failed on the "
+                                     f"card: {e}") from e
             missed[label] = str(e)
             log(f"[BL] {label}: WALL-TIME BAR MISSED on the card: {e}")
         else:
             log(f"[BL] {label}: check passed on the card")
+
+    # The mesh leg at its full size (the paper's width): 8 and 16 logical
+    # shards of 4,000 titles and a (4, 2) mesh of 2,000, under its asserts.
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    full = mods["mesh_bench"].run(device="cuda")
+    wall = time.perf_counter() - t0
+    for row in full:
+        log(f"[BL] mesh_bench full: {row['leg']} {row['policy']} "
+            f"({row['n_data']}, {row['n_model']}): {row['matches']} matches, "
+            f"equal {row['equal']}, gather {row['gather_bytes_per_dev']} B "
+            f"/ psum {row['psum_bytes_per_dev']} B per shard"
+            + (f", {row['reduction_x']}x below flat" if "reduction_x" in row
+               else "") + f", {row['wall_s']} s on one card")
+    grew = {k: v - before[k] for k, v in ops.launch_counts().items()
+            if v - before[k]}
+    log(f"[BL] mesh_bench full size: {len(full)} rows, asserts passed, "
+        f"{wall:.1f} s; launches {grew}")
 
     total = ops.launch_counts()
     for k in ("pair_scores_catalog_compact", "pair_scores_catalog",
@@ -1661,6 +1707,119 @@ def bl_phase(torch, np):
     log(f"BL launches {total}; {time.perf_counter() - t_phase:.1f} s")
     log(json.dumps({"bl_bars_missed": missed}))
     return total, missed
+
+
+# ---------------------------------------------------------------------------
+# EX: the torch examples on the card and on the CPU
+# ---------------------------------------------------------------------------
+
+EX_ER = ("quickstart", "dedup_sorted_neighborhood", "dedup_two_sources",
+         "match_service", "chaos_drill")
+EX_DEVICE_KEYS = {"match_service": ("warmup_builds",)}  # not compared
+EX_TRAIN_STEPS = 20
+
+
+def load_example(name):
+    """``examples/torch_<name>.py`` as a module (nothing runs on import)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"torch_{name}", ROOT / "examples" / f"torch_{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def ex_phase(torch, np, kstats):
+    """EX: each torch example's ``main`` in-process with ``--device
+    cuda``, then ``--device cpu``. The ER examples' returned counts must
+    be equal on both (matches, pairs, recall, loads, map output; the
+    drill's survivors, rounds, retries, recovered tiles, evictions and
+    readmissions; the service's matches per batch); the LM examples'
+    tokens must have the asked shape and lie in the vocabulary, and the
+    training loss must be finite on both and fall over EX_TRAIN_STEPS
+    steps on the card. K1 and K2 (the service's warm-up) must launch;
+    the drill's 64 x 64 catalog at width 64, a shape no earlier phase
+    holds, is held against the plain versions. Returns the launches of
+    the examples' card runs."""
+    import shutil
+    from repro_torch.kernels import build, ops
+
+    phase("EX the torch examples on the card, held against the CPU")
+    t_phase = time.perf_counter()
+    mods = {name: load_example(name)
+            for name in EX_ER + ("serve_lm", "train_lm")}
+    ckpt = build.BUILD_DIR / "ex_ckpt"
+    ops.reset_launch_counts()
+    card, seconds = {}, {}
+    for name in EX_ER:
+        t0 = time.perf_counter()
+        card[name] = mods[name].main(["--device", "cuda"])
+        seconds[name] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    card["serve_lm"] = mods["serve_lm"].main(["--device", "cuda"])
+    seconds["serve_lm"] = time.perf_counter() - t0
+    shutil.rmtree(ckpt, ignore_errors=True)
+    t0 = time.perf_counter()
+    card["train_lm"] = mods["train_lm"].main(
+        ["--steps", str(EX_TRAIN_STEPS), "--ckpt-dir", str(ckpt / "cuda"),
+         "--device", "cuda"])
+    seconds["train_lm"] = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    for k in ("pair_scores_catalog_compact", "pair_scores_catalog"):
+        if launches[k] == 0:
+            raise AssertionError(f"EX launched no {k}")
+
+    for name in EX_ER:
+        t0 = time.perf_counter()
+        cpu = mods[name].main(["--device", "cpu"])
+        skip = EX_DEVICE_KEYS.get(name, ())
+        a = {k: v for k, v in card[name].items() if k not in skip}
+        b = {k: v for k, v in cpu.items() if k not in skip}
+        if a != b:
+            diff = {k: (a.get(k), b.get(k)) for k in set(a) | set(b)
+                    if a.get(k) != b.get(k)}
+            raise AssertionError(f"EX {name}: card counts differ from the "
+                                 f"CPU's: {str(diff)[:600]}")
+        log(f"[EX] {name}: counts {sorted(a)} equal on the card "
+            f"({seconds[name]:.1f} s) and the CPU "
+            f"({time.perf_counter() - t0:.1f} s)")
+    cpu_serve = mods["serve_lm"].main(["--device", "cpu"])
+    for where, got in (("card", card["serve_lm"]), ("cpu", cpu_serve)):
+        if got["shape"] != [4, 32] or not (
+                0 <= got["min_token"] <= got["max_token"] < got["vocab"]):
+            raise AssertionError(f"EX serve_lm on the {where}: {got}")
+    log(f"[EX] serve_lm: (4, 32) tokens in [0, {card['serve_lm']['vocab']}) "
+        f"on the card ({seconds['serve_lm']:.1f} s) and the CPU")
+    cpu_train = mods["train_lm"].main(
+        ["--steps", "2", "--ckpt-dir", str(ckpt / "cpu"), "--device", "cpu"])
+    tl = card["train_lm"]
+    losses = tl["losses"]
+    if not (tl["finite"] and cpu_train["finite"] and tl["start"] == 0
+            and len(losses) == EX_TRAIN_STEPS
+            and np.mean(losses[-5:]) < losses[0]):
+        raise AssertionError(f"EX train_lm: losses {losses}, CPU "
+                             f"{cpu_train['losses']}")
+    log(f"[EX] train_lm: {tl['arch']} ({tl['params']:,} parameters), "
+        f"{EX_TRAIN_STEPS} steps on the card ({seconds['train_lm']:.1f} s): "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f} (mean of the last 5 "
+        f"{np.mean(losses[-5:]):.4f}), finite; 2 steps on the CPU finite "
+        f"({cpu_train['losses']})")
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+    catalog, feats = mods["chaos_drill"].workload()
+    f = torch.from_numpy(feats).cuda()
+    tiles = torch.from_numpy(np.concatenate(
+        [catalog.tiles, np.zeros((7, catalog.tiles.shape[1]), np.int32)]
+    ).astype(np.int32)).cuda()
+    thr = mods["chaos_drill"].THRESH
+    compare(torch, f, f, tiles, 64, 64, thr, (64 * 64, 32, 4), kstats,
+            "EX chaos drill catalog d=64 (64,64)")
+    log(f"[EX] the drill's catalog ({catalog.num_tiles} tiles of 64 x 64, "
+        f"width 64, threshold {thr}): both kernels equal to the plain "
+        f"versions at capacities 4,096 / 32 / 4")
+    log(f"EX launches {launches}; {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2975,6 +3134,7 @@ def main() -> int:
     er_m_launches = er_mesh_phase(torch, np, ds, ds1_rows, er_s)
     del ds, ds1_rows, er_s
     bl_launches, bl_missed = bl_phase(torch, np)
+    ex_launches = ex_phase(torch, np, kstats)
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 is on for f32 matmuls; the f32 plain "
                              "versions and LM-b assume it off")
@@ -2998,11 +3158,15 @@ def main() -> int:
             ("pair_scores_catalog_compact", 409,
              main_launches["pair_scores_catalog_compact"],
              "DS1 pair_range run_er, default capacity; bl_launches: phase "
-             "BL, the torch legs of benchmarks/ at --quick"),
+             "BL, the torch legs of benchmarks/ at --quick and "
+             "torch_mesh_bench at full size; ex_launches: phase EX, the "
+             "torch examples on the card"),
             ("pair_scores_catalog", 301,
              overflow_launches["pair_scores_catalog"],
              "DS1 pair_range run_er, compact_capacity=16 (overflow path); "
-             "bl_launches: phase BL (the services' warm-up)")):
+             "bl_launches: phase BL (the services' warm-up); ex_launches: "
+             "phase EX (torch_match_service's and torch_chaos_drill's "
+             "warm-up)")):
         summary.append(dict(
             name=kname, route="cuda",
             source="src/repro_torch/csrc/pair_sim.cu",
@@ -3011,6 +3175,7 @@ def main() -> int:
             er_s_launches=er_s_launches[kname],
             er_m_launches=er_m_launches[kname],
             bl_launches=bl_launches[kname],
+            ex_launches=ex_launches[kname],
             max_abs_err=kstats[kname]["max_abs_err"],
             near_threshold_flips=kstats[kname]["near_flips"],
             compared_cases=kstats[kname]["cases"],

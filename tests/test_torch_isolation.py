@@ -1,9 +1,11 @@
 """The port stands alone: no module of ``src/repro_torch``, no torch leg
-of the benchmarks (``benchmarks/torch_*.py``) and not ``chip_smoke.py``
-imports JAX or the JAX package ``repro`` (an AST walk, so imports inside
-functions count too); a torch leg imports no JAX leg (of ``benchmarks/``
-only ``common`` and the other ``torch_*`` modules, relative or not); and
-importing the port or its legs pulls neither into the process."""
+of the benchmarks (``benchmarks/torch_*.py``), no torch example
+(``examples/torch_*.py``) and not ``chip_smoke.py`` imports JAX or the
+JAX package ``repro`` (an AST walk, so imports inside functions count
+too); a torch leg or example imports no JAX leg (of ``benchmarks/`` only
+``common`` and the other ``torch_*`` modules, relative or not) and no
+JAX example; and importing the port, its legs or its examples pulls
+neither into the process."""
 import ast
 import os
 import subprocess
@@ -16,8 +18,11 @@ pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 LEGS = sorted((ROOT / "benchmarks").glob("torch_*.py"))
-FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + LEGS + [
-    ROOT / "chip_smoke.py"]
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
+JAX_EXAMPLES = {p.stem for p in (ROOT / "examples").glob("*.py")
+                if not p.stem.startswith("torch_")}
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + LEGS + \
+    EXAMPLES + [ROOT / "chip_smoke.py"]
 
 
 def _imported(tree):
@@ -67,10 +72,23 @@ def test_a_jax_leg_import_is_caught():
         "from benchmarks import torch_common") == []
 
 
-@pytest.mark.parametrize("path", LEGS, ids=lambda p: p.name)
+@pytest.mark.parametrize("path", LEGS + EXAMPLES, ids=lambda p: p.name)
 def test_legs_import_no_jax_leg(path):
     bad = _bad_benchmark_imports(path.read_text())
     assert not bad, f"{path.name} imports the JAX legs {bad}"
+
+
+def test_the_seven_torch_examples_exist():
+    assert {p.stem for p in EXAMPLES} == {f"torch_{n}" for n in JAX_EXAMPLES}
+    assert len(EXAMPLES) == 7
+
+
+@pytest.mark.parametrize("path", EXAMPLES, ids=lambda p: p.name)
+def test_examples_import_no_jax_example(path):
+    names = list(_imported(ast.parse(path.read_text(), str(path))))
+    bad = [n for n in names if n.split(".")[-1] in JAX_EXAMPLES
+           or n.split(".")[0] == "examples"]
+    assert not bad, f"{path.name} imports the JAX examples {bad}"
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -92,6 +110,10 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.launch.roofline, repro_torch.launch.dryrun, "
             "repro_torch.launch.inspect_cell, "
             + ", ".join(f"benchmarks.{p.stem}" for p in LEGS) + "; "
+            "import importlib.util as u; "
+            + "; ".join(f"s = u.spec_from_file_location('{p.stem}', "
+                        f"'{p}'); s.loader.exec_module(u.module_from_spec(s))"
+                        for p in EXAMPLES) + "; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

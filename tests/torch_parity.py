@@ -326,3 +326,17 @@ def bench_legs(name: str, monkeypatch, out_dir):
     monkeypatch.setattr(common, "OUT_DIR", str(out_dir))
     return (importlib.import_module(f"benchmarks.{name}"),
             importlib.import_module(f"benchmarks.torch_{name}"))
+
+
+def load_example(name: str):
+    """``examples/torch_<name>.py`` as a module (importing it runs nothing:
+    each example runs under its ``__main__`` guard)."""
+    import importlib.util
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        f"torch_{name}", os.path.join(root, "examples", f"torch_{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
