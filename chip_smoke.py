@@ -205,8 +205,21 @@ dry-run's roofline with H100 data-sheet constants):
                same mesh (step, bottleneck, the three terms, peak live +
                argument bytes) and the ratios measured / predicted.
 
-Phases run in the order 1-6, D, ER-t, ER-f, ER-s, ER-m, BL, EX, LM-a, LM-b, LM-c,
-LM-e, LM-d, T-a, T-b, LM-f, DR, then 7, the
+The last slice (the sharding-constraint hooks, ``sharding.set_mesh``):
+
+  SH hooks   — (a) LM-b's model (granite, full width, 2 layers, f32) on the
+               plain route with GShard dispatch, which reach every
+               model-side hook: one forward of 2 x 256 tokens on the card
+               and one on the CPU inside ``set_mesh`` of the 16x16
+               production mesh; the two record lists (shapes, dtypes,
+               filtered specs) must be equal, 18 a layer. (b) granite at
+               full width and depth, bf16, flash + grouped: the prefill of
+               2 x 1,000 tokens outside and then inside the context; the
+               logits must be equal under ``torch.equal`` and the context
+               must hold 24 layers x 2 records.
+
+Phases run in the order 1-6, D, ER-t, ER-f, ER-s, ER-m, BL, EX, LM-a, LM-b,
+SH, LM-c, LM-e, LM-d, T-a, T-b, LM-f, DR, then 7, the
 summary. The last two lines of standard output are the kernel
 summary and ``{"ok": true, "device": {...}}``. Without a card, or without the repo
 beside it, the script exits non-zero and prints no result.
@@ -2042,6 +2055,99 @@ def lm_wiring_phase(torch, np):
     return worst
 
 
+SH_RECORDS_RUN = (2, 256)    # prompts, length: the records run (a)
+SH_PREFILL_RUN = (2, 1000)   # the full-depth kernel-route prefill (b)
+
+
+def _first_difference(a, b):
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return f"record {i}: {x} vs {y}"
+    return f"{len(a)} vs {len(b)} records"
+
+
+def sh_phase(torch, np):
+    """SH: the sharding-constraint hooks inside ``set_mesh`` on the card.
+    (a) LM-b's model (granite, full width, 2 layers, f32) on the plain
+    route with GShard dispatch, which reach every model-side hook: one
+    forward on the card and on the CPU under the 16x16 production mesh,
+    the two record lists equal (shapes, dtypes, filtered specs).
+    (b) granite at full width and depth, bf16, flash + grouped: the
+    prefill inside and outside the context, logits equal under
+    ``torch.equal``, two records a layer."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import get_model
+    from repro_torch.serve import make_prefill
+    from repro_torch.sharding import set_mesh
+
+    phase("SH sharding-constraint hooks: records card vs CPU (granite, 2 "
+          "layers, f32, plain + gshard), full-depth kernel-route prefill "
+          "inside vs outside set_mesh(make_production_mesh())")
+    t_phase = time.perf_counter()
+    mesh = make_production_mesh()
+    cfg, model = granite(torch, n_layers=2, param_dtype="float32",
+                         compute_dtype="float32", attn_impl="plain",
+                         moe_dispatch="gshard")
+    mod = get_model(cfg)
+    models = {"cuda": model, "cpu": mod.init(
+        cfg, torch.Generator().manual_seed(0), device="cpu")}
+    tokens = np.random.default_rng(5).integers(0, cfg.vocab, SH_RECORDS_RUN)
+    records = {}
+    for dev, m in models.items():
+        with set_mesh(mesh) as ctx:
+            out = mod.forward(m, {"tokens": torch.from_numpy(tokens).to(
+                m.device)}, cfg, device=m.device)
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"SH (a): non-finite logits on {dev}")
+        records[dev] = ctx.records
+    del models, model, out
+    # a layer: the logits, the two layer-boundary hooks, the dispatch's
+    # seven sites and y_j once per k
+    want = cfg.n_layers * (1 + 2 + 7 + cfg.top_k)
+    if records["cuda"] != records["cpu"] or len(records["cuda"]) != want:
+        raise AssertionError(
+            f"SH (a): card and CPU records differ or are not {want}: "
+            f"{_first_difference(records['cuda'], records['cpu'])}")
+    specs = sorted({str(r.spec) for r in records["cuda"]})
+    log(f"(a) B={SH_RECORDS_RUN[0]} S={SH_RECORDS_RUN[1]}: {want} records "
+        f"on the card equal the CPU's ({cfg.n_layers} layers x "
+        f"{want // cfg.n_layers}); logits {records['cuda'][0].shape} "
+        f"{records['cuda'][0].spec}; specs {specs}")
+
+    cfg, model = granite(torch, attn_impl="kernel", moe_dispatch="grouped")
+    b, s = SH_PREFILL_RUN
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab, (b, s))).cuda()}
+    prefill = make_prefill(cfg)
+    logits = {}
+    ops.reset_launch_counts()
+    for inside in (False, True):
+        cache = mod.init_cache(cfg, b, s + 1)
+        with set_mesh(mesh) if inside else contextlib.nullcontext() as ctx:
+            logits[inside], _ = prefill(model, batch, cache)
+        torch.cuda.synchronize()
+    launches = {k: v for k, v in ops.launch_counts().items()
+                if k in ("flash_attention", "grouped_matmul")}
+    del model, cache
+    if not torch.equal(logits[True], logits[False]):
+        raise AssertionError(
+            "SH (b): prefill logits inside the context differ from those "
+            "outside by "
+            f"{(logits[True] - logits[False]).abs().max().item()}")
+    if len(ctx.records) != 2 * cfg.n_layers:
+        raise AssertionError(f"SH (b): {len(ctx.records)} records, not "
+                             f"{cfg.n_layers} layers x 2")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"SH (b): a kernel did not launch: {launches}")
+    log(f"(b) granite {cfg.n_layers} layers {cfg.compute_dtype} flash + "
+        f"grouped, prefill "
+        f"B={b} S={s}: logits inside == outside (torch.equal), "
+        f"{len(ctx.records)} records ({cfg.n_layers} layers x 2, "
+        f"{ctx.records[0].spec}); launches of both runs {launches}; SH "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
 LM_KERNELS = (("flash_attention", "flash_"), ("grouped_matmul", "grouped_mm"))
 ER_KERNELS = (("catalog_kernels", "catalog_kernel"),)
 
@@ -3140,6 +3246,7 @@ def main() -> int:
                              "versions and LM-b assume it off")
     lm_errs, lm_cases = lm_kernels_phase(torch, np)
     lm_wiring_phase(torch, np)
+    sh_phase(torch, np)
     cfg, model, lm_launches, _ = lm_slice_phase(torch, np)
     vlm_launches, vlm_row = lm_vlm_phase(torch, np)
     lm_times = lm_timing_phase(torch, np, cfg, model, yardstick_lib)

@@ -11,8 +11,10 @@ existing file holds; exits 1 when any cell fails. Nothing is compiled
 and no device memory is allocated: each cell is built on meta tensors
 (``steps.build_cell``) and its eager dispatch counted
 (``roofline.count_cost``) at 1 and 2 trips of depth, then extrapolated
-to the full depth. ``count_s`` (the reference's ``compile_s``) is the
-seconds of counting.
+to the full depth, inside ``sharding.set_mesh(mesh)`` as the reference
+lowers inside ``jax.set_mesh`` (the sharding hooks record; no count
+moves). ``count_s`` (the reference's ``compile_s``) is the seconds of
+counting.
 
 A train or prefill cell of a family with a time loop (ssm, hybrid)
 dispatches every time step, ~8 ops a step and layer: one trip of
@@ -36,12 +38,14 @@ __all__ = ["run_cell", "main"]
 
 
 def _count(cfg, shape, mesh, mesh_name, trips):
+    from ..sharding import set_mesh
     from .roofline import analyze_cell
     from .steps import build_cell
 
     t0 = time.perf_counter()
     cell = build_cell(cfg, shape, mesh, layer_unroll=trips)
-    report, count = analyze_cell(cell, mesh_name)
+    with set_mesh(mesh):    # the reference lowers under jax.set_mesh
+        report, count = analyze_cell(cell, mesh_name)
     return report, count, time.perf_counter() - t0
 
 

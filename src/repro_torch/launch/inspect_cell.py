@@ -70,7 +70,8 @@ def main(argv=None):
         print(f"  {per_dev / 2**20:10.1f} MiB/dev (total {total / 2**30:6.2f} "
               f"GiB) {path}  spec={spec}")
 
-    report, count = analyze_cell(cell, "16x16")
+    with shd.set_mesh(mesh):    # the reference compiles under jax.set_mesh
+        report, count = analyze_cell(cell, "16x16")
     print(f"\n== counted ==  ops={count.ops}  "
           f"peak live={count.peak_bytes / mesh.size / 2**30:.2f} GiB/dev  "
           f"args={report.argument_bytes / 2**30:.2f} GiB/dev  "

@@ -7,10 +7,11 @@ attention route: ``attn_impl`` is ``"plain"`` (the chunked attention of
 reference's ``"pallas"``). ``kernel_impl`` is the port's own: the ``ops``
 impl (``auto | cuda | torch``) of both kernel routes, the flash kernel and
 the grouped matmul of ``moe_dispatch="grouped"``. ``remat`` checkpoints
-each layer of a differentiated ``forward`` (``layers.remat``). The fields
-of the reference's layer scan and activation sharding (``unroll_layers``,
-``layer_unroll``, ``act_shard``) are kept as data; the port runs its
-layers in a Python loop and reads none of them.
+each layer of a differentiated ``forward`` (``layers.remat``).
+``act_shard`` is the mode of the layer-boundary sharding hooks
+(``sharding.act_constrain``). The fields of the reference's layer scan
+(``unroll_layers``, ``layer_unroll``) are kept as data; the port runs its
+layers in a Python loop and reads neither.
 """
 from __future__ import annotations
 

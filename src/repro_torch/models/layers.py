@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
+from ..sharding import attn_logits_constrain, set_mesh
 
 __all__ = ["dtype_of", "dense_init", "rms_norm", "layer_norm", "rope_tables",
            "apply_rope", "gqa_attention", "gqa_attention_cached", "swiglu",
@@ -114,6 +115,7 @@ def gqa_attention(q, k, v, *, causal: bool = True, impl: str = "plain",
         # dot in the activation dtype, logits upcast after (as the reference)
         logits = torch.einsum("bqgkd,bskd->bgkqs", qg, k
                               ).to(torch.float32) * (d ** -0.5)
+        logits = attn_logits_constrain(logits)
         if causal:
             rows = q_off + torch.arange(cq, device=q.device)[:, None]
             cols = torch.arange(s, device=q.device)[None, :]
@@ -153,10 +155,28 @@ def remat(fn, *args, enabled: bool):
     ``torch.utils.checkpoint`` (non-reentrant), which keeps none of its
     activations and recomputes them in the backward pass, as the
     reference's ``jax.checkpoint(..., nothing_saveable)`` of a scanned
-    layer body or recurrence chunk does."""
+    layer body or recurrence chunk does. The recomputation runs with no
+    mesh context, so a sharding hook records one call per forward, as the
+    reference's body is traced once."""
     if enabled and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(_hooks_once(fn), *args, use_reentrant=False)
     return fn(*args)
+
+
+def _hooks_once(fn):
+    """``fn``, whose calls after the first (autograd's recomputation) run
+    outside any mesh context."""
+    first = True
+
+    def run(*args):
+        nonlocal first
+        if first:
+            first = False
+            return fn(*args)
+        with set_mesh(None):
+            return fn(*args)
+
+    return run
 
 
 def chunked_scan(steps, state, streams, consts=(), chunk: int = 256):

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from ..sharding import constrain
 from . import transformer as _tf
 from .config import ModelConfig
 from .layers import dtype_of
@@ -82,7 +83,9 @@ def _experts_gshard(p, x, w, ids, cfg: ModelConfig):
     """Grouped capacity dispatch via batched sort + gather (GShard
     semantics). x: (T, d) -> (T, d). Tokens split into G groups of ~4k;
     capacity C = ceil(cf·k·Tg/E) per expert and group; overflow drops
-    first-come-first-served within the group."""
+    first-come-first-served within the group. The reference's sharding
+    hooks: G-batched tensors over every mesh axis, the expert buffer
+    (G, E, C, d) E-over-``model`` (the EP all-to-all)."""
     t, d = x.shape
     e, k = cfg.num_experts, cfg.top_k
     g_count = max(1, t // _MOE_GROUP_TOKENS)
@@ -93,7 +96,8 @@ def _experts_gshard(p, x, w, ids, cfg: ModelConfig):
     tk = tg * k
     dev = x.device
 
-    xg = x.reshape(g_count, tg, d)
+    gall = ("pod", "data", "model")
+    xg = constrain(x.reshape(g_count, tg, d), gall, None, None)
     w_flat = w.reshape(g_count, tk)
     flat_ids = ids.reshape(g_count, tk)
     order = torch.argsort(flat_ids, dim=1, stable=True)        # (G, Tk)
@@ -111,26 +115,32 @@ def _experts_gshard(p, x, w, ids, cfg: ModelConfig):
     slot_valid = (torch.arange(cap, device=dev)[None, None, :]
                   < torch.clamp(counts, max=cap)[:, :, None])
     slot_src = torch.clamp(slot_src, max=tk - 1).reshape(g_count, e * cap)
-    src_token = torch.gather(order, 1, slot_src) // k
+    src_token = constrain(torch.gather(order, 1, slot_src) // k, gall, None)
     xe = torch.gather(xg, 1, src_token[..., None].expand(-1, -1, d))
     xe = xe * slot_valid.reshape(g_count, e * cap, 1).to(xe.dtype)
+    xe = constrain(xe, gall, None, None)
     xe = xe.reshape(g_count, e, cap, d)
+    xe = constrain(xe, ("pod", "data"), "model", None, None)    # EP reshard
     ex = p.experts
     gt = torch.einsum("gecd,edf->gecf", xe, ex.w_gate)
     ut = torch.einsum("gecd,edf->gecf", xe, ex.w_up)
     ye = torch.einsum("gecf,efd->gecd", F.silu(gt) * ut, ex.w_down)
+    ye = constrain(ye, ("pod", "data"), "model", None, None)
 
     # combine: loop the k slots
-    ye_flat = ye.reshape(g_count, e * cap, d)
+    ye_flat = constrain(ye.reshape(g_count, e * cap, d), gall, None, None)
     row = sorted_ids * cap + torch.clamp(pos, max=cap - 1)      # (G, Tk)
     row = torch.where(keep_sorted, row, e * cap - 1)
     inv = torch.argsort(order, dim=1)                           # slot -> sorted pos
-    y = torch.zeros((g_count, tg, d), dtype=x.dtype, device=dev)
+    y = constrain(torch.zeros((g_count, tg, d), dtype=x.dtype, device=dev),
+                  gall, None, None)
     for j in range(k):
         sorted_pos = inv[:, j::k]                               # (G, Tg)
         rows_j = torch.gather(row, 1, sorted_pos)
         keep_j = torch.gather(keep_sorted, 1, sorted_pos)
-        y_j = torch.gather(ye_flat, 1, rows_j[..., None].expand(-1, -1, d))
+        y_j = constrain(
+            torch.gather(ye_flat, 1, rows_j[..., None].expand(-1, -1, d)),
+            gall, None, None)
         scale = torch.where(keep_j, w_flat[:, j::k], 0.0)
         y = y + y_j * scale[..., None].to(y_j.dtype)
     return y.reshape(t, d).to(x.dtype)

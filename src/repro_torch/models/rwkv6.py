@@ -27,6 +27,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from ..sharding import act_constrain
 from . import transformer as _tf
 from .config import ModelConfig
 from .layers import chunked_scan, dtype_of, remat, rms_norm
@@ -140,10 +141,10 @@ def _channel_mix(p, x, last_x):
 def _layer(x, p, cfg: ModelConfig, state, last_tm, last_cm):
     h = rms_norm(x, p.ln_tm, cfg.rms_eps)
     y, state, new_tm = _time_mix(p, h, cfg, state, last_tm)
-    x = x + y
+    x = act_constrain(x + y, cfg.act_shard)
     h = rms_norm(x, p.ln_cm, cfg.rms_eps)
     y, new_cm = _channel_mix(p, h, last_cm)
-    return x + y, state, new_tm, new_cm
+    return act_constrain(x + y, cfg.act_shard), state, new_tm, new_cm
 
 
 # ---------------------------------------------------------------------------

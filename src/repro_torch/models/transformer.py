@@ -22,6 +22,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..sharding import act_constrain
 from .config import ModelConfig
 from .layers import (apply_rope, dense_init, dtype_of, gqa_attention,
                      gqa_attention_cached, remat, rms_norm, rope_tables,
@@ -196,8 +197,12 @@ def dense_ffn(p, h, cfg: ModelConfig):
     return swiglu(h, p.w_gate, p.w_up, p.w_down)
 
 
-def layer(x, p, cfg: ModelConfig, sin, cos, ffn: Callable = dense_ffn):
-    """One pre-norm block over a whole sequence: returns (x, (k, v))."""
+def layer(x, p, cfg: ModelConfig, sin, cos, ffn: Callable = dense_ffn,
+          mid_constrain: bool = True):
+    """One pre-norm block over a whole sequence: returns (x, (k, v)). The
+    reference's layer-boundary hooks: after the attention residual (unless
+    ``mid_constrain`` is false, as in zamba2's shared block) and on the
+    output."""
     h = rms_norm(x, p.ln_attn, cfg.rms_eps)
     q, k, v = _qkv(p, cfg, h)
     q = apply_rope(q, sin, cos)
@@ -206,8 +211,10 @@ def layer(x, p, cfg: ModelConfig, sin, cos, ffn: Callable = dense_ffn):
                          kernel_impl=cfg.kernel_impl)
     b, s = attn.shape[:2]
     x = x + attn.reshape(b, s, -1) @ p.wo
+    if mid_constrain:
+        x = act_constrain(x, cfg.act_shard)
     h = rms_norm(x, p.ln_mlp, cfg.rms_eps)
-    return x + ffn(p, h, cfg), (k, v)
+    return act_constrain(x + ffn(p, h, cfg), cfg.act_shard), (k, v)
 
 
 def decode_layer(x, p, cfg: ModelConfig, sin, cos, k_cache, v_cache,

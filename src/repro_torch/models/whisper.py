@@ -27,6 +27,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from ..sharding import act_constrain
 from . import transformer as _tf
 from .config import ModelConfig
 from .layers import (dtype_of, gqa_attention, gqa_attention_cached,
@@ -128,7 +129,8 @@ def _mlp(p, x):
 def _enc_layer(x, p, cfg: ModelConfig):
     a = layer_norm(x, p.ln1_w, p.ln1_b)
     x = x + _mha(p.attn, a, a, cfg, causal=False)[0]
-    return x + _mlp(p, layer_norm(x, p.ln2_w, p.ln2_b))
+    return act_constrain(x + _mlp(p, layer_norm(x, p.ln2_w, p.ln2_b)),
+                         cfg.act_shard)
 
 
 def _dec_layer(x, p, enc, cfg: ModelConfig):
@@ -144,7 +146,9 @@ def _dec_layer(x, p, enc, cfg: ModelConfig):
 
 
 def _dec_train_layer(x, p, enc, cfg: ModelConfig):
-    return _dec_layer(x, p, enc, cfg)[0]
+    """``forward``'s decoder block, with the reference's hook on its output
+    (its prefill body has none)."""
+    return act_constrain(_dec_layer(x, p, enc, cfg)[0], cfg.act_shard)
 
 
 def _logits(params, h):

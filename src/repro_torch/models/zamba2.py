@@ -30,6 +30,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from ..sharding import act_constrain
 from . import transformer as _tf
 from .config import ModelConfig
 from .layers import chunked_scan, dtype_of, remat, rms_norm, rope_tables
@@ -135,7 +136,8 @@ def _mamba_layer(x, p, cfg: ModelConfig, ssm_state, conv_state):
                                 (xh, bmat, cmat, dt_), (a,))
     y = y.to(x.dtype) + p.D[None, None, :, None] * xh
     y = y.reshape(b, s, di) * F.silu(z)
-    return x + y @ p.out_proj, ssm_state, conv_state
+    return (act_constrain(x + y @ p.out_proj, cfg.act_shard), ssm_state,
+            conv_state)
 
 
 def _super_block(h, nodes, attn, cfg: ModelConfig, sin, cos, ssm, conv):
@@ -147,7 +149,8 @@ def _super_block(h, nodes, attn, cfg: ModelConfig, sin, cos, ssm, conv):
         h, st, cv = _mamba_layer(h, p, cfg, ssm[j], conv[j])
         new_ssm.append(st)
         new_conv.append(cv)
-    h, (k, v) = _tf.layer(h, attn, cfg, sin, cos)
+    # the reference's shared block has its hook on the output only
+    h, (k, v) = _tf.layer(h, attn, cfg, sin, cos, mid_constrain=False)
     return h, torch.stack(new_ssm), torch.stack(new_conv), k, v
 
 

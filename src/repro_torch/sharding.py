@@ -21,9 +21,12 @@ Port of ``repro.sharding``. **Model-side specs** (reference
     ``jax.sharding.PartitionSpec``. :func:`shard_shape` gives the
     per-device sizes. The production meshes are :class:`AbstractMesh`es:
     axis names and sizes, no devices.
-  * The port runs no SPMD program, so :func:`constrain` and its wrappers
-    return their input unchanged, as the reference does outside a mesh
-    context; they still check that the spec fits the tensor's rank.
+  * The sharding-constraint hooks (:func:`constrain`, ``act_constrain``,
+    ``attn_logits_constrain``; reference ``sharding.py:59-127``) sit where
+    the reference calls them. The port runs no SPMD program, so a hook
+    returns its input, the same tensor; inside a :func:`set_mesh` context
+    (``jax.set_mesh``'s counterpart) it also appends a :class:`Record` of
+    what the reference's constraint asks, which a test or a caller reads.
 
 **The ER mesh** (``make_er_mesh``). The reference
 is single-controller: one Python process plans and drives ``shard_map``
@@ -52,15 +55,19 @@ formulas of ``er/compiler/comms.py`` account.
 from __future__ import annotations
 
 import re
-from dataclasses import dataclass
-from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
+from contextlib import contextmanager
+from contextvars import ContextVar
+from dataclasses import dataclass, field
+from typing import (Any, Dict, Iterator, List, Mapping, NamedTuple, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
 
 __all__ = ["Mesh", "AbstractMesh", "Sharded", "make_er_mesh", "shard_rows",
            "replicate", "all_gather", "ppermute", "psum", "axis_index",
-           "P", "constrain", "act_constrain", "attn_logits_constrain",
+           "P", "set_mesh", "get_mesh", "MeshContext", "Record",
+           "constrain", "act_constrain", "attn_logits_constrain",
            "param_spec", "param_shardings", "batch_spec", "cache_spec",
            "cache_shardings", "shard_shape", "DP_AXES", "TP_AXIS"]
 
@@ -354,13 +361,72 @@ def shard_shape(shape: Sequence[int], spec: Sequence, mesh) -> Tuple[int, ...]:
     return tuple(out)
 
 
+class Record(NamedTuple):
+    """One hook call inside a mesh context: the tensor's shape, its dtype's
+    name (``"float32"``, ``"int32"``) and the spec filtered by the active
+    mesh's axes."""
+    shape: Tuple[int, ...]
+    dtype: str
+    spec: P
+
+
+@dataclass(frozen=True)
+class MeshContext:
+    """What :func:`set_mesh` makes active: the mesh and the records of the
+    hook calls made inside it, in call order."""
+    mesh: Any
+    records: List[Record] = field(default_factory=list)
+
+
+_CONTEXT: ContextVar[Optional[MeshContext]] = ContextVar(
+    "repro_torch_mesh_context", default=None)
+
+
+@contextmanager
+def set_mesh(mesh) -> Iterator[Optional[MeshContext]]:
+    """Make ``mesh`` (a :class:`Mesh` or an :class:`AbstractMesh`) the
+    active mesh inside the ``with`` block, as ``jax.set_mesh``; yields
+    the :class:`MeshContext` whose ``records`` the hooks append to.
+    ``None`` makes no mesh active (the hooks only check ranks). Nests;
+    the outer context (or none) is restored on exit and on an exception.
+    A ``ContextVar``: another thread does not see this context."""
+    if mesh is not None and not hasattr(mesh, "axis_names"):
+        raise TypeError(f"set_mesh takes a Mesh, an AbstractMesh or None, "
+                        f"not {type(mesh).__name__}")
+    ctx = None if mesh is None else MeshContext(mesh)
+    token = _CONTEXT.set(ctx)
+    try:
+        yield ctx
+    finally:
+        _CONTEXT.reset(token)
+
+
+def get_mesh():
+    """The active mesh, or None outside a :func:`set_mesh` context."""
+    ctx = _CONTEXT.get()
+    return None if ctx is None else ctx.mesh
+
+
+def _check_rank(x, n: int) -> None:
+    if n > len(x.shape):
+        raise ValueError(f"a spec of {n} entries does not fit a tensor of "
+                         f"{len(x.shape)} dims")
+
+
 def constrain(x, *spec):
-    """The reference's ``with_sharding_constraint`` outside a mesh context:
-    returns ``x``. The port runs no SPMD program; the spec must still fit
-    ``x``'s rank."""
-    if len(spec) > x.dim():
-        raise ValueError(f"spec {spec} has more entries than the tensor's "
-                         f"{x.dim()} dims")
+    """The reference's ``with_sharding_constraint`` hook. Returns ``x``
+    itself: the port runs no SPMD program, and a constraint moves layout,
+    never values. Inside a :func:`set_mesh` context it appends the
+    :class:`Record` of ``x`` and ``spec`` filtered by the mesh's axes, as
+    the reference constrains to that filtered spec; outside one it only
+    checks that the spec fits ``x``'s rank (``x`` a tensor or an array)."""
+    _check_rank(x, len(spec))
+    ctx = _CONTEXT.get()
+    if ctx is not None:
+        ctx.records.append(Record(
+            tuple(int(n) for n in x.shape),
+            str(x.dtype).removeprefix("torch."),
+            _filter_spec(spec, tuple(ctx.mesh.axis_names))))
     return x
 
 
@@ -378,8 +444,25 @@ def act_constrain(x, mode: str):
 
 
 def attn_logits_constrain(x):
-    """(B, G, KV, Q, S) attention logits; returns ``x`` (the reference
-    shards them over the model axis inside a mesh context)."""
+    """(B, G, KV, Q, S) attention logits over the model axis; returns
+    ``x``. The reference's order: the group dim when tp divides it (the
+    g-major head layout makes that the common case), else the kv dim,
+    else the key dim (split-K), else the batch only. No record outside a
+    context, without a ``model`` axis, or at tp 1."""
+    _check_rank(x, 5)
+    mesh = get_mesh()
+    if mesh is None or TP_AXIS not in mesh.axis_names:
+        return x
+    tp = mesh.shape[TP_AXIS]
+    if tp <= 1:
+        return x
+    _, g, kv, _, s = x.shape
+    if g % tp == 0:
+        return constrain(x, DP_AXES, TP_AXIS, None, None, None)
+    if kv % tp == 0:
+        return constrain(x, DP_AXES, None, TP_AXIS, None, None)
+    if s % tp == 0:
+        return constrain(x, DP_AXES, None, None, None, TP_AXIS)
     return constrain(x, DP_AXES, None, None, None, None)
 
 

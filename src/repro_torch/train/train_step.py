@@ -16,6 +16,7 @@ import torch
 
 from ..models import get_model
 from ..models.config import ModelConfig
+from ..sharding import constrain
 from .optimizer import AdamWConfig, adamw_update, cosine_lr
 
 __all__ = ["loss_fn", "make_train_step"]
@@ -59,6 +60,10 @@ def make_train_step(cfg: ModelConfig, opt: AdamWConfig = AdamWConfig(),
             "with attn_impl='plain' and moe_dispatch='gshard'")
 
     def step(params, opt_state, batch):
+        # every entry's batch dim over the DP axes, in the key order of
+        # the reference's jitted step (a flattened dict's: sorted)
+        batch = {k: constrain(batch[k], ("pod", "data"))
+                 for k in sorted(batch)}
         named = dict(params.named_parameters())
         for p in named.values():
             p.requires_grad_(True)

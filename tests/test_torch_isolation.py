@@ -2,7 +2,8 @@
 of the benchmarks (``benchmarks/torch_*.py``), no torch example
 (``examples/torch_*.py``) and not ``chip_smoke.py`` imports JAX or the
 JAX package ``repro`` (an AST walk, so imports inside functions count
-too); a torch leg or example imports no JAX leg (of ``benchmarks/`` only
+too); the completeness test, which parses both trees, imports neither
+package nor JAX nor torch; a torch leg or example imports no JAX leg (of ``benchmarks/`` only
 ``common`` and the other ``torch_*`` modules, relative or not) and no
 JAX example; and importing the port, its legs or its examples pulls
 neither into the process."""
@@ -23,6 +24,7 @@ JAX_EXAMPLES = {p.stem for p in (ROOT / "examples").glob("*.py")
                 if not p.stem.startswith("torch_")}
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + LEGS + \
     EXAMPLES + [ROOT / "chip_smoke.py"]
+PARSE_ONLY = [ROOT / "tests" / "test_torch_completeness.py"]
 
 
 def _imported(tree):
@@ -95,6 +97,14 @@ def test_examples_import_no_jax_example(path):
 def test_no_jax_or_reference_import(path):
     names = list(_imported(ast.parse(path.read_text(), str(path))))
     bad = [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+@pytest.mark.parametrize("path", PARSE_ONLY, ids=lambda p: p.name)
+def test_parse_only_tests_import_no_package(path):
+    names = list(_imported(ast.parse(path.read_text(), str(path))))
+    bad = [n for n in names if n.split(".")[0] in
+           ("jax", "jaxlib", "repro", "repro_torch", "torch")]
     assert not bad, f"{path.name} imports {bad}"
 
 

@@ -147,6 +147,144 @@ def lm_port(cfg, tree, batch, nxt):
 
 
 # ---------------------------------------------------------------------------
+# Sharding-constraint records (tests/test_torch_constraints*.py)
+# ---------------------------------------------------------------------------
+
+ENTRY_POINTS = ("forward", "prefill", "decode_step", "train_step")
+CONSTRAINT_MESHES = {"2x2": ((2, 2), ("data", "model")),
+                     "2x2x2": ((2, 2, 2), ("pod", "data", "model"))}
+
+
+def spec_entries(spec) -> tuple:
+    """A partition spec with each entry a tuple of axis names or None and
+    the trailing Nones dropped (``PartitionSpec`` keeps a one-name entry
+    as the bare name)."""
+    out = [None if e is None else (e,) if isinstance(e, str) else tuple(e)
+           for e in spec]
+    while out and out[-1] is None:
+        out.pop()
+    return tuple(out)
+
+
+def norm_records(records) -> list:
+    """(shape, dtype, spec) triples, comparable across the packages: the
+    spec by :func:`spec_entries`, the dtype by name with the port's int64
+    index tensors as int32 (JAX without x64 has no int64)."""
+    out = []
+    for shape, dtype, spec in records:
+        name = str(dtype).removeprefix("torch.")
+        out.append((tuple(int(n) for n in shape),
+                    "int32" if name == "int64" else name, spec_entries(spec)))
+    return out
+
+
+def train_batch(cfg, seed):
+    """:func:`lm_batch` with next-token labels (the last one -100)."""
+    batch = lm_batch(cfg, seed)
+    labels = np.full_like(batch["tokens"], -100)
+    labels[:, :-1] = batch["tokens"][:, 1:]
+    return dict(batch, labels=labels)
+
+
+def reference_constraint_records(arch, mesh_name, monkeypatch, seed=0):
+    """{entry point: the reference's sharding-constraint calls} of the
+    ``reduced()`` arch at B ``LM_B`` × S ``LM_S``, under the abstract mesh
+    ``CONSTRAINT_MESHES[mesh_name]``. ``jax.lax.with_sharding_constraint``
+    is replaced by a recorder that returns its input; each entry point is
+    traced by ``make_jaxpr`` under ``disable_jit``, so that every scan runs
+    its body once per step, as the port runs each layer, and nothing
+    compiles."""
+    import jax
+    from jax.sharding import AbstractMesh
+    from repro import configs as jconfigs
+    from repro.models import get_model
+    from repro.train.optimizer import adamw_init
+    from repro.train.train_step import make_train_step
+
+    calls = []
+
+    def record(x, spec):
+        calls.append((tuple(x.shape), str(x.dtype), tuple(spec)))
+        return x
+
+    monkeypatch.setattr(jax.lax, "with_sharding_constraint", record)
+    jcfg = jconfigs.reduced(jconfigs.get_config(arch))
+    mod = get_model(jcfg)
+    params = jax.eval_shape(lambda: mod.init(jcfg, jax.random.key(seed)))
+    shapes = lambda tree: {k: jax.ShapeDtypeStruct(v.shape, v.dtype)
+                           for k, v in tree.items()}
+    batch = shapes(lm_batch(jcfg, seed))
+    prefix = jcfg.n_patches if jcfg.family == "vlm" else 0
+    cache = jax.eval_shape(
+        lambda: mod.init_cache(jcfg, LM_B, LM_S + prefix + LM_NEW))
+    tokens = jax.ShapeDtypeStruct((LM_B, 1), np.int32)
+    opt_state = jax.eval_shape(adamw_init, params)
+    step = make_train_step(jcfg)
+    runs = {
+        "forward": (lambda p, b: mod.forward(p, b, jcfg), (params, batch)),
+        "prefill": (lambda p, b, c: mod.prefill(p, b, jcfg, c),
+                    (params, batch, cache)),
+        "decode_step": (lambda p, t, c: mod.decode_step(p, t, c, jcfg),
+                        (params, tokens, cache)),
+        "train_step": (step, (params, opt_state,
+                              shapes(train_batch(jcfg, seed)))),
+    }
+    sizes, axes = CONSTRAINT_MESHES[mesh_name]
+    out = {}
+    with jax.sharding.use_abstract_mesh(AbstractMesh(sizes, axes)), \
+            jax.disable_jit():
+        for name in ENTRY_POINTS:
+            fn, args = runs[name]
+            calls.clear()
+            jax.make_jaxpr(fn)(*args)
+            out[name] = norm_records(calls)
+    return out
+
+
+def port_model(arch, seed=0, **over):
+    """The port's ``reduced()`` arch (``over`` replaces fields) and a model
+    of it on the CPU, random weights from ``seed``."""
+    from repro_torch import configs
+    from repro_torch.models import get_model
+
+    cfg = configs.reduced(configs.get_config(arch)).replace(**over)
+    return cfg, get_model(cfg).init(cfg, torch.Generator().manual_seed(seed),
+                                    device="cpu")
+
+
+def port_constraint_records(arch, mesh_name, seed=0, **over):
+    """{entry point: the port's hook records} on the same inputs as
+    :func:`reference_constraint_records`, each entry point inside its own
+    ``set_mesh`` context."""
+    from repro_torch import sharding as shd
+    from repro_torch.models import get_model
+    from repro_torch.train import adamw_init, make_train_step
+
+    cfg, model = port_model(arch, seed, **over)
+    mod = get_model(cfg)
+    batch = lm_batch(cfg, seed)
+    prefix = cfg.n_patches if cfg.family == "vlm" else 0
+    cache = mod.init_cache(cfg, LM_B, LM_S + prefix + LM_NEW, device="cpu")
+    mesh = shd.AbstractMesh(*CONSTRAINT_MESHES[mesh_name])
+    out = {}
+    with shd.set_mesh(mesh) as ctx:
+        mod.forward(model, batch, cfg, device="cpu")
+    out["forward"] = norm_records(ctx.records)
+    with shd.set_mesh(mesh) as ctx:
+        last, cache = mod.prefill(model, batch, cfg, cache, device="cpu")
+    out["prefill"] = norm_records(ctx.records)
+    with shd.set_mesh(mesh) as ctx:
+        mod.decode_step(model, torch.argmax(last[:, -1:], dim=-1), cache,
+                        cfg, device="cpu")
+    out["decode_step"] = norm_records(ctx.records)
+    with shd.set_mesh(mesh) as ctx:
+        make_train_step(cfg)(model, adamw_init(model),
+                             train_batch(cfg, seed))
+    out["train_step"] = norm_records(ctx.records)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Mesh parity (tests/test_torch_mesh*.py, tests/test_torch_distributed.py)
 # ---------------------------------------------------------------------------
 
