@@ -10,9 +10,7 @@ Two legs at the paper's robustness point s = 1.0:
     model cost) and the match count equal the JAX leg's, as does the
     model's static pick. The wall of ``score_catalog`` (``seconds``, as
     in the JAX leg) feeds a :class:`GeometryCostModel` and a feedback
-    ``autotune`` refit; ``kernel_s`` is the share of that wall from the
-    kernel's launch until its counts are on the host
-    (``stage1_stats['kernel_seconds']``), which no bar reads.
+    ``autotune`` refit.
   * **service leg** — an :class:`ERService` with ``autotune_tiles=True``
     sweeps its lattice in ``warmup()`` and then serves with no kernel
     build or load (``compile_counter``).
@@ -35,7 +33,7 @@ from repro_torch.device import resolve_device
 from repro_torch.er import ERService, ServiceConfig, compile_counter
 from repro_torch.er.blocking import exponential_block_ids
 from repro_torch.er.compiler import (GeometryCostModel, autotune, lower,
-                                     plan_to_job, score_catalog, stage1_stats)
+                                     plan_to_job, score_catalog)
 
 from .common import print_table, save_rows, timer
 from .torch_common import cli, count_view, impl_of
@@ -64,20 +62,18 @@ def _skew_workload(n: int, d: int, r: int, m: int, s: float, seed: int = 7):
 
 
 def _bench_geometry(feats, job, bm, bn, threshold, impl, dev, repeats=2):
-    """(wall seconds of ``score_catalog``, its kernel seconds, match set)
-    at one geometry, from the fastest of ``repeats`` calls."""
+    """(wall seconds of ``score_catalog``, match set) at one geometry,
+    from the fastest of ``repeats`` calls."""
     cat = lower(job, bm, bn)
     score_catalog(feats, cat, threshold=threshold, impl=impl, device=dev)
-    best, kernel = float("inf"), 0.0
+    best = float("inf")
     for _ in range(repeats):
-        k0 = stage1_stats["kernel_seconds"]
         with timer() as t:
             ra, rb = score_catalog(feats, cat, threshold=threshold,
                                    impl=impl, device=dev)
-        if t.seconds < best:
-            best, kernel = t.seconds, stage1_stats["kernel_seconds"] - k0
+        best = min(best, t.seconds)
     matches = {(min(a, b), max(a, b)) for a, b in zip(ra.tolist(), rb.tolist())}
-    return best, kernel, matches
+    return best, matches
 
 
 def measure(n: int = 8_000, d: int = 256, r: int = 100, m: int = 20,
@@ -95,7 +91,7 @@ def measure(n: int = 8_000, d: int = 256, r: int = 100, m: int = 20,
     feedback = GeometryCostModel()
     rows, match_sets, seconds = [], {}, {}
     for sc in report.scores:
-        secs, kernel, matches = _bench_geometry(
+        secs, matches = _bench_geometry(
             feats_dev, job, sc.block_m, sc.block_n, threshold, impl, dev)
         seconds[sc.geometry] = secs
         match_sets[sc.geometry] = matches
@@ -109,7 +105,6 @@ def measure(n: int = 8_000, d: int = 256, r: int = 100, m: int = 20,
             "seconds": round(secs, 4),
             "mpairs_per_s": round(sc.live_pairs / secs / 1e6, 2),
             "matches": len(matches),
-            "kernel_s": kernel,
         })
     base_set = match_sets[BASELINE]
     for geom, matches in match_sets.items():

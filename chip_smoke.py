@@ -44,7 +44,7 @@ The third slice (the dense kernel, tuning, the supervisor, the service):
                turns with the earlier design (the FMA kernel);
   ER-t tuned   — ``run_er(tune_tiles=True)`` at DS1 for every strategy:
                the picked geometry, tiles, matches (equal to phase 4's) and
-               stage-1 kernel seconds beside 128x128's;
+               stage-1 seconds beside 128x128's;
   ER-f faults  — supervised ``run_er`` at DS1 PairRange on 4 logical
                devices under a seeded fault script, without and with work
                stealing: 7,788 matches, rounds, retries, lost tiles;
@@ -78,7 +78,7 @@ The seventh slice (the mesh, one controller driving every shard):
                under a fault script of transient errors (the supervisor over
                the gathered corpus: ER-s's matches, its retries and
                recovered tiles). Seconds per run and
-               stage-1 kernel seconds beside phase 4's; the launches of the
+               stage-1 seconds beside phase 4's; the launches of the
                whole phase (both catalog kernels must launch).
 
 The tenth slice (the torch legs of ``benchmarks/``):
@@ -594,8 +594,8 @@ def ds1_phase(torch):
         log(f"[{strategy}] launches {counts}  stage1_stats {s1}")
         log(f"[{strategy}] seconds: featurize {tm['featurize_s']:.3f}  "
             f"job1 {tm['job1_s']:.3f}  plan/lower/schedule {tm['plan_s']:.3f}"
-            f"  upload {tm['upload_s']:.3f}  stage-1 kernel "
-            f"{tm['stage1_s']:.3f}  decode {tm['decode_s']:.3f}  stage 2 "
+            f"  upload {tm['upload_s']:.3f}  stage 1 "
+            f"{tm['stage1_s']:.3f}  stage 2 "
             f"{tm['stage2_s']:.3f}  total {tm['total_s']:.3f}  "
             + (f"(reference executor total "
                f"{ref_res.extra['timings']['total_s']:.3f})"
@@ -1045,8 +1045,8 @@ def er_tuned_phase(ds, ds1_rows):
         log(f"[{strategy}] tuned geometry {res.extra['tuned_geometry']}: "
             f"tiles {res.extra['catalog_tiles']} (128x128: "
             f"{base.extra['catalog_tiles']}), matches {len(res.matches)} "
-            f"(equal), stage-1 kernel {tm['stage1_s']:.4f} s (128x128: "
-            f"{tb['stage1_s']:.4f} s), decode {tm['decode_s']:.4f} s, "
+            f"(equal), stage 1 {tm['stage1_s']:.4f} s (128x128: "
+            f"{tb['stage1_s']:.4f} s), "
             f"plan/lower/schedule incl. autotune {tm['plan_s']:.3f} s "
             f"(128x128: {tb['plan_s']:.3f} s), total {wall:.3f} s "
             f"(128x128: {tb['total_s']:.3f} s); launches {counts}")
@@ -1367,7 +1367,7 @@ def er_mesh_phase(torch, np, ds, ds1_rows, er_s):
         tm, tb = res.extra["timings"], base.extra["timings"]
         log(f"[mesh 1 {strategy}] matches {len(res.matches)} (phase 4: "
             f"equal), interconnect 0; run {wall:.3f} s (phase 4 total "
-            f"{tb['total_s']:.3f} s), stage-1 kernel {tm['stage1_s']:.4f} "
+            f"{tb['total_s']:.3f} s), stage 1 {tm['stage1_s']:.4f} "
             f"s (phase 4: {tb['stage1_s']:.4f} s); launches {counts}")
 
     mesh8 = make_er_mesh(ER_M_SHARDS, devices=["cuda:0"] * ER_M_SHARDS)
@@ -1404,8 +1404,7 @@ def er_mesh_phase(torch, np, ds, ds1_rows, er_s):
             f"{hops or 'flat'}, bytes received per device per launch "
             f"{per}; interconnect "
             f"{_flows(s1)} = plan x {launches} launches; run {wall:.3f} s, "
-            f"stage-1 kernel {tm['stage1_s']:.4f} s, decode "
-            f"{tm['decode_s']:.4f} s (phase 4: "
+            f"stage 1 {tm['stage1_s']:.4f} s (phase 4: "
             f"{pr_base.extra['timings']['stage1_s']:.4f} s); launches "
             f"{counts}")
     if not totals["ring"] < totals["flat"]:

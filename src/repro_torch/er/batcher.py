@@ -30,7 +30,12 @@ unchanged here. :class:`ERBatcher` closes the gap:
     BDM + lower to catalogs, host-side, under the service's host lock)
     and execution (kernel launches) run on separate threads connected
     by a depth-1 queue — a two-deep pipeline in which super-batch k+1
-    plans while super-batch k's kernels are in flight.
+    plans while super-batch k's kernels are in flight. Spans
+    (:mod:`.trace`) time the waits: ``batcher.queue`` from ``submit``
+    until the planner takes the request into a super-batch,
+    ``batcher.handoff`` while the planner blocks on the queue,
+    ``batcher.await_plan`` while the executor waits for a plan, and
+    ``batcher.demux`` while it hands the answers to the requests.
   * **Per-tenant admission.** A token bucket per tenant id (refill
     ``tenant_rate`` queries/s, burst ``tenant_burst``) rejects the
     excess of a hot tenant with :class:`AdmissionError` (carrying
@@ -43,6 +48,7 @@ request (so a super-batch spends one shared budget).
 """
 from __future__ import annotations
 
+import itertools
 import threading
 import time
 from collections import deque
@@ -52,6 +58,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from . import trace
 from .service import ERService, MatchResponse
 
 __all__ = ["ERBatcher", "AdmissionError"]
@@ -99,6 +106,7 @@ class _Pending:
     tenant: str
     future: Future
     arrived: float
+    queued: object                 # its batcher.queue span (trace.start)
 
 
 @dataclass
@@ -162,6 +170,7 @@ class ERBatcher:
         self._cond = threading.Condition()
         self._outstanding = 0
         self._closed = False
+        self._request_ids = itertools.count(1)
         # Depth-1 handoff queue == two-deep pipeline: one super-batch
         # planning (or planned, waiting) while one executes.
         import queue as _queue
@@ -207,7 +216,9 @@ class ERBatcher:
                 return fut
             self._pending.append(_Pending(
                 titles=titles, nq=len(titles), tenant=tenant,
-                future=fut, arrived=time.monotonic()))
+                future=fut, arrived=time.monotonic(),
+                queued=trace.start("batcher.queue",
+                                   request=next(self._request_ids))))
             self._outstanding += 1
             self._cond.notify_all()
         return fut
@@ -285,19 +296,24 @@ class ERBatcher:
                 self._planned.put(_SENTINEL)
                 return
             try:
+                ctx = svc._new_request_ctx()
+                for p in members:
+                    p.queued.finish(super_batch=ctx.id)
                 titles: List[str] = []
                 offsets = np.zeros(len(members), np.int64)
                 for i, p in enumerate(members):
                     offsets[i] = len(titles)
                     titles.extend(p.titles)
                 sup = _Super(members=members, offsets=offsets,
-                             total=len(titles), ctx=svc._new_request_ctx())
+                             total=len(titles), ctx=ctx)
                 slices = list(range(0, sup.total, self._cap))
                 for k, lo in enumerate(slices):
                     pb = svc._plan_batch(titles[lo:lo + self._cap],
                                          sup.ctx, record=True)
-                    self._planned.put(_WorkItem(
-                        sup=sup, pb=pb, lo=lo, last=(k == len(slices) - 1)))
+                    with trace.span("batcher.handoff", super_batch=ctx.id):
+                        self._planned.put(_WorkItem(
+                            sup=sup, pb=pb, lo=lo,
+                            last=(k == len(slices) - 1)))
             except BaseException as e:      # plan failed: fail the super
                 self._fail_super(members, e)
 
@@ -306,15 +322,17 @@ class ERBatcher:
     def _exec_loop(self):
         svc = self.service
         while True:
-            item = self._planned.get()
+            with trace.span("batcher.await_plan"):
+                item = self._planned.get()
             if item is _SENTINEL:
                 return
             sup = item.sup
             try:
                 part = svc._execute_batch(item.pb, sup.ctx)
-                self._demux(sup, part, item.lo)
-                if item.last:
-                    self._resolve_super(sup)
+                with trace.span("batcher.demux", super_batch=sup.ctx.id):
+                    self._demux(sup, part, item.lo)
+                    if item.last:
+                        self._resolve_super(sup)
             except BaseException as e:
                 self._fail_super(sup.members, e)
 

@@ -59,17 +59,12 @@ def _pad_pow2(t: int, cap: int) -> int:
 #   nonzero_decodes   — chunks decoded from the dense mask
 #   compact_overflows — compact chunks whose exact counts exceeded the
 #                       capacity, forcing the exact mask-path fallback
-#   kernel_seconds    — wall time from launch until the counts (or the
-#                       mask) are ready on the device (a mesh launch's
-#                       gathers included)
-#   decode_seconds    — the survivors' decode and their copy to the host
 #   interconnect      — bytes RECEIVED per device, per data flow, summed
 #                       over mesh launches (each launch re-runs its
 #                       gather), from the exact formulas of
 #                       ``compiler.comms``, as the JAX package counts them
 stage1_stats: dict = {"compact_decodes": 0, "nonzero_decodes": 0,
-                      "compact_overflows": 0, "kernel_seconds": 0.0,
-                      "decode_seconds": 0.0,
+                      "compact_overflows": 0,
                       "interconnect": {"flat_bytes": 0, "ring_bytes": 0,
                                        "hier_intra_bytes": 0,
                                        "hier_inter_bytes": 0,
@@ -123,18 +118,13 @@ def _score_mask(fa, fb, chunk, chunk_t, *, threshold, bm, bn, impl, dev):
     """One chunk through the dense-mask kernel → global (rows_a, rows_b)."""
     from ...kernels import ops
 
-    t0 = time.perf_counter()
     mask = ops.pair_scores_catalog(fa, fb, chunk_t, threshold=threshold,
                                    block_m=bm, block_n=bn, impl=impl)
     synchronize([dev])
-    t1 = time.perf_counter()
-    stage1_stats["kernel_seconds"] += t1 - t0
     stage1_stats["nonzero_decodes"] += 1
     ti, ii, jj = (x.cpu().numpy() for x in torch.nonzero(mask, as_tuple=True))
-    out = (chunk[ti, A_TILE].astype(np.int64) * bm + ii,
-           chunk[ti, B_TILE].astype(np.int64) * bn + jj)
-    stage1_stats["decode_seconds"] += time.perf_counter() - t1
-    return out
+    return (chunk[ti, A_TILE].astype(np.int64) * bm + ii,
+            chunk[ti, B_TILE].astype(np.int64) * bn + jj)
 
 
 # Packed survivor slots (bytes) launched before any of them is read back:
@@ -151,14 +141,11 @@ def _score_compact(fa, fb, group, *, threshold, bm, bn, capacity, impl,
     (rows_a, rows_b) per chunk, in order."""
     from ...kernels import ops
 
-    t0 = time.perf_counter()
     launched = [ops.pair_scores_catalog_compact(
         fa, fb, chunk_t, threshold=threshold, block_m=bm, block_n=bn,
         capacity=capacity, impl=impl) for _, chunk_t in group]
     counts_t = torch.cat([c for _, c in launched]).reshape(-1)
     counts = counts_t.cpu().numpy().astype(np.int64)
-    t1 = time.perf_counter()
-    stage1_stats["kernel_seconds"] += t1 - t0
     ends = np.cumsum([chunk.shape[0] for chunk, _ in group])
     per_chunk = np.split(counts, ends[:-1])
     kmax = [int(c.max(initial=0)) for c in per_chunk]
@@ -174,7 +161,6 @@ def _score_compact(fa, fb, group, *, threshold, bm, bn, capacity, impl,
         ra, rb = _decode_on_device(
             torch.cat([launched[i][0][:, :k] for i in good]), counts_t,
             torch.cat([group[i][1] for i in good]), sum(totals), bm, bn)
-    stage1_stats["decode_seconds"] += time.perf_counter() - t1
     cuts = np.cumsum(totals)[:-1]
     out = [None] * len(group)
     for i, a, b in zip(good, np.split(ra, cuts), np.split(rb, cuts)):
@@ -475,10 +461,8 @@ def _score_and_compact(shard, operands, tiles_dev, chunk: int,
     ``max(count)`` packed slots of its tiles to the host and decodes them
     in O(survivors). A chunk whose exact count exceeds the capacity
     re-scores through the mask twin, exactness over speed. Both paths
-    are counted in ``stage1_stats``, with ``kernel_seconds`` (launch
-    until the counts or masks are ready, gathers included) and
-    ``decode_seconds``. ``base_a``/``base_b`` (n_dev,) shift device-local
-    tile coordinates to global rows on each side (the RepSN and
+    are counted in ``stage1_stats``. ``base_a``/``base_b`` (n_dev,) shift
+    device-local tile coordinates to global rows on each side (the RepSN and
     ring/hierarchical local-coordinate paths; cross-mode ring shifts the
     a-side only); None means that side's tiles carry global strip
     indices. ``launch_flows(chunk_size) -> {flow: bytes}`` is called once
@@ -504,14 +488,11 @@ def _score_and_compact(shard, operands, tiles_dev, chunk: int,
     for lo in range(0, cap, chunk):
         part = tiles_dev[:, lo:lo + chunk]
         masks = None
-        t0 = time.perf_counter()
         if is_compact:
             _account(part.shape[1])
             packed, counts = shard(*operands, part)
             counts = np.stack([c.reshape(-1).cpu().numpy()
                                for c in counts]).astype(np.int64)
-            t1 = time.perf_counter()
-            stage1_stats["kernel_seconds"] += t1 - t0
             if counts.max(initial=0) <= shard.capacity:
                 stage1_stats["compact_decodes"] += 1
                 for dd in range(part.shape[0]):
@@ -522,18 +503,14 @@ def _score_and_compact(shard, operands, tiles_dev, chunk: int,
                     off_a, off_b = _offsets(dd)
                     out_a.append(off_a + ra)
                     out_b.append(off_b + rb)
-                stage1_stats["decode_seconds"] += time.perf_counter() - t1
                 continue
             stage1_stats["compact_overflows"] += 1
             _account(part.shape[1])
-            t0 = time.perf_counter()
             masks = shard.mask_twin()(*operands, part)
         if masks is None:
             _account(part.shape[1])
             masks = shard(*operands, part)
         synchronize(devices)
-        t1 = time.perf_counter()
-        stage1_stats["kernel_seconds"] += t1 - t0
         stage1_stats["nonzero_decodes"] += 1
         for dd, mask in enumerate(masks):
             ti, ii, jj = (x.cpu().numpy()
@@ -543,7 +520,6 @@ def _score_and_compact(shard, operands, tiles_dev, chunk: int,
                          + ii)
             out_b.append(off_b + part[dd, ti, B_TILE].astype(np.int64) * bn
                          + jj)
-        stage1_stats["decode_seconds"] += time.perf_counter() - t1
     if not out_a:
         return np.zeros(0, np.int64), np.zeros(0, np.int64)
     return np.concatenate(out_a), np.concatenate(out_b)

@@ -53,10 +53,11 @@ from ..kernels.ops import IMPLS
 from ..sharding import shard_rows
 from .blocking import prefix_block_ids, sn_sort_order
 from .encode import encode_titles, ngram_features
+from . import trace
 from .compiler import (COMMS_POLICIES, EwmaCostModel, MatchJob, Schedule,
                        TileCatalog, apply_schedule, autotune, cross_job,
                        enumerate_task_pairs, execute_supervised, lower,
-                       plan_comms, plan_to_job, schedule_tiles, stage1_stats)
+                       plan_comms, plan_to_job, schedule_tiles)
 from .compiler.execute import execute, verify_pairs
 
 __all__ = ["ERConfig", "ERResult", "JobPlan", "run_er", "plan_job",
@@ -218,10 +219,10 @@ def plan_job(titles: Sequence[str], cfg: ERConfig,
     null_idx: Optional[np.ndarray] = None
     extra: Dict = {}
     if cfg.strategy == "sorted_neighborhood":
-        t0 = time.perf_counter()
-        to_global = sn_sort_order(titles)
-        plan = plan_sorted_neighborhood(n, cfg.window, cfg.r)
-        bdm_seconds = time.perf_counter() - t0
+        with trace.span("compiler.job1") as job1:
+            to_global = sn_sort_order(titles)
+            plan = plan_sorted_neighborhood(n, cfg.window, cfg.r)
+        bdm_seconds = job1.seconds
         map_out = sn_map_output_size(plan)
         extra.update(window=cfg.window, w_eff=plan.w_eff)
     elif cfg.strategy in ("basic", "block_split", "pair_range"):
@@ -239,13 +240,13 @@ def plan_job(titles: Sequence[str], cfg: ERConfig,
             null_idx = np.flatnonzero(~keyed)
 
         # ---- Job 1: BDM ----
-        t0 = time.perf_counter()
-        kb = block_ids[keyed_idx]
-        kp = part_ids[keyed_idx]
-        num_blocks = int(kb.max()) + 1 if kb.size else 0
-        bdm = compute_bdm(kb, kp, num_blocks, cfg.m)
-        eidx = entity_indices(kb, kp, bdm)
-        bdm_seconds = time.perf_counter() - t0
+        with trace.span("compiler.job1") as job1:
+            kb = block_ids[keyed_idx]
+            kp = part_ids[keyed_idx]
+            num_blocks = int(kb.max()) + 1 if kb.size else 0
+            bdm = compute_bdm(kb, kp, num_blocks, cfg.m)
+            eidx = entity_indices(kb, kp, bdm)
+        bdm_seconds = job1.seconds
 
         sizes = bdm.sum(axis=1)
         perm, _ = blocked_layout(kb, eidx, sizes)
@@ -346,8 +347,10 @@ def run_er(titles: Sequence[str], config: Optional[ERConfig] = None,
 
     ``config=None`` builds a fresh default ``ERConfig`` per call; the
     resolved config is returned on ``ERResult.config``. Seconds per stage
-    land on ``ERResult.extra["timings"]``; on the card each stage ends in
-    a synchronize.
+    land on ``ERResult.extra["timings"]``, each the duration of the
+    stage's span (:mod:`.trace`): ``stage1_s`` is host wall time from
+    launch until the survivors are on the host (the device's own time
+    is in a device trace); on the card each stage ends in a synchronize.
 
     With ``cfg.supervised_devices > 0`` (or a ``fault_injector``) the
     catalog executor's stage 1 runs through the fault-tolerant supervisor
@@ -371,7 +374,17 @@ def run_er(titles: Sequence[str], config: Optional[ERConfig] = None,
     The match_⊥ job and stage 2 run on the mesh's first device. A mesh
     names its devices, so ``device`` must have the mesh's device type.
     """
-    t_start = time.perf_counter()
+    with trace.span("pipeline.run_er") as run:
+        res = _run_er(titles, config, block_ids, fault_injector, feedback,
+                      mesh, axis, device)
+    res.extra["timings"]["total_s"] = run.seconds
+    return res
+
+
+def _run_er(titles, config, block_ids, fault_injector, feedback, mesh, axis,
+            device) -> ERResult:
+    """The body of :func:`run_er`, inside its ``pipeline.run_er`` span;
+    every timing is a span's duration."""
     n = len(titles)
     cfg = config if config is not None else ERConfig()
     if cfg.executor not in ("catalog", "reference"):
@@ -402,15 +415,15 @@ def run_er(titles: Sequence[str], config: Optional[ERConfig] = None,
         synchronize(devices)
 
     timings: Dict[str, float] = {}
-    t0 = time.perf_counter()
-    codes, lens, feats = featurize(titles, cfg)
-    timings["featurize_s"] = time.perf_counter() - t0
+    with trace.span("encode.featurize") as sp:
+        codes, lens, feats = featurize(titles, cfg)
+    timings["featurize_s"] = sp.seconds
 
     extra: Dict = {"timings": timings}
 
     # ---- Job 1 + plan: the ONLY strategy-aware stage ----
-    t_plan = time.perf_counter()
-    jp = plan_job(titles, cfg, block_ids)
+    with trace.span("compiler.plan_job") as planned:
+        jp = plan_job(titles, cfg, block_ids)
     plan, to_global, null_idx = jp.plan, jp.to_global, jp.null_idx
     bdm_seconds, map_out = jp.bdm_seconds, jp.map_output_size
     extra.update(jp.extra)
@@ -451,111 +464,114 @@ def run_er(titles: Sequence[str], config: Optional[ERConfig] = None,
         return ca, cb
 
     layout = None
+    timings["plan_s"] = planned.seconds - bdm_seconds
     if cfg.executor == "catalog":
-        catalog = _lower_plan(plan, cfg, extra)
+        with trace.span("compiler.lower") as lowered:
+            catalog = _lower_plan(plan, cfg, extra)
         extra["catalog_tiles"] = catalog.num_tiles
-        if mesh is not None:
-            layout = _mesh_layout(mesh, axis, catalog, to_global.size,
-                                  feats.shape[1], cfg, extra)
-        sched = schedule_tiles(
-            catalog, n_dev=layout.n_dev if layout else 1,
-            policy=cfg.schedule_policy,
-            comms_plan=layout.comms_plan if layout else None)
-        catalog = apply_schedule(catalog, sched)
-        sched_report = sched.stats()
-    timings["plan_s"] = time.perf_counter() - t_plan - bdm_seconds
+        with trace.span("compiler.schedule") as sp:
+            if mesh is not None:
+                layout = _mesh_layout(mesh, axis, catalog, to_global.size,
+                                      feats.shape[1], cfg, extra)
+            sched = schedule_tiles(
+                catalog, n_dev=layout.n_dev if layout else 1,
+                policy=cfg.schedule_policy,
+                comms_plan=layout.comms_plan if layout else None)
+            catalog = apply_schedule(catalog, sched)
+            sched_report = sched.stats()
+        timings["plan_s"] += lowered.seconds + sp.seconds
 
     # ---- features and codes in blocked (or sorted) order, on the device
     # (on a mesh: the zero-padded features, row-sharded over its devices)
-    t0 = time.perf_counter()
-    if layout is None:
-        g_feats = torch.from_numpy(feats[to_global]).to(dev)
-    else:
-        padded = np.zeros((layout.rows, layout.cols), feats.dtype)
-        padded[:to_global.size, :feats.shape[1]] = feats[to_global]
-        g_feats = shard_rows(padded, mesh.grid(axis, layout.model_axis))
-    g_codes = torch.from_numpy(codes[to_global]).to(dev)
-    g_lens = torch.from_numpy(lens[to_global]).to(dev)
-    _sync()
-    timings["upload_s"] = time.perf_counter() - t0
+    with trace.span("pipeline.upload") as sp:
+        if layout is None:
+            g_feats = torch.from_numpy(feats[to_global]).to(dev)
+        else:
+            padded = np.zeros((layout.rows, layout.cols), feats.dtype)
+            padded[:to_global.size, :feats.shape[1]] = feats[to_global]
+            g_feats = shard_rows(padded, mesh.grid(axis, layout.model_axis))
+        g_codes = torch.from_numpy(codes[to_global]).to(dev)
+        g_lens = torch.from_numpy(lens[to_global]).to(dev)
+        _sync()
+    timings["upload_s"] = sp.seconds
 
     # ---- Job 2: reduce-phase matching (one path for every strategy) ----
     if cfg.executor == "catalog":
-        s1 = dict(stage1_stats)
-        t0 = time.perf_counter()
         on_mesh = {} if layout is None else dict(
             mesh=mesh, axis=axis, schedule=sched,
             model_axis=layout.model_axis)
-        ca, cb = _stage1(catalog, g_feats, **on_mesh)
-        t1 = time.perf_counter()
-        ha, hb = verify_pairs(g_codes, g_lens, g_codes, g_lens, ca, cb,
-                              cfg.threshold, device=dev)
-        _sync()
-        t2 = time.perf_counter()
-        timings["stage1_s"] = stage1_stats["kernel_seconds"] - s1["kernel_seconds"]
-        timings["decode_s"] = stage1_stats["decode_seconds"] - s1["decode_seconds"]
-        timings["stage2_s"] = t2 - t1
+        with trace.span("stage1.score") as s1:
+            ca, cb = _stage1(catalog, g_feats, **on_mesh)
+        with trace.span("stage2.verify") as s2:
+            ha, hb = verify_pairs(g_codes, g_lens, g_codes, g_lens, ca, cb,
+                                  cfg.threshold, device=dev)
+            _sync()
+        timings["stage1_s"] = s1.seconds
+        timings["stage2_s"] = s2.seconds
         extra["candidates"] = int(ca.size)
         for a, b in zip(to_global[ha], to_global[hb]):
             matches.add((min(int(a), int(b)), max(int(a), int(b))))
         if total:
             # Wall time attributed to reducers by planned load.
-            reducer_seconds = ((t2 - t0) * reducer_pairs.astype(np.float64)
-                               / total)
+            reducer_seconds = ((s1.seconds + s2.seconds)
+                               * reducer_pairs.astype(np.float64) / total)
     else:
-        t_ref = time.perf_counter()
-        for k, (ra, rb) in enumerate(_reference_reducer_rows(plan, cfg.r)):
-            if ra.size == 0:
-                continue
-            t0 = time.perf_counter()
-            ha, hb = _match_pairs_chunked(
-                g_feats, g_codes, g_lens, ra, rb,
-                cfg.threshold, cfg.filter_margin, dev)
-            reducer_seconds[k] = time.perf_counter() - t0
-            for a, b in zip(to_global[ha], to_global[hb]):
-                matches.add((min(int(a), int(b)), max(int(a), int(b))))
-        timings["reference_s"] = time.perf_counter() - t_ref
+        with trace.span("pipeline.reference") as ref:
+            for k, (ra, rb) in enumerate(_reference_reducer_rows(plan,
+                                                                 cfg.r)):
+                if ra.size == 0:
+                    continue
+                t0 = time.perf_counter()
+                ha, hb = _match_pairs_chunked(
+                    g_feats, g_codes, g_lens, ra, rb,
+                    cfg.threshold, cfg.filter_margin, dev)
+                reducer_seconds[k] = time.perf_counter() - t0
+                for a, b in zip(to_global[ha], to_global[hb]):
+                    matches.add((min(int(a), int(b)), max(int(a), int(b))))
+        timings["reference_s"] = ref.seconds
 
     # ---- match_⊥(R, R_∅): entities without blocking key vs everyone ----
     if cfg.match_missing_keys and null_idx is not None and null_idx.size:
-        t_cross = time.perf_counter()
-        bdm2 = TwoSourceBDM(
-            bdm_r=np.full((1, 1), n, np.int64),
-            bdm_s=np.full((1, 1), null_idx.size, np.int64))
-        plan2 = plan_pair_range_2src(bdm2, cfg.r)
-        extra["null_key_pairs"] = plan2.total_pairs
-        feats_t = torch.from_numpy(feats).to(dev)
-        codes_t = torch.from_numpy(codes).to(dev)
-        lens_t = torch.from_numpy(lens).to(dev)
-        null_t = torch.from_numpy(null_idx).to(dev)
-        if cfg.executor == "catalog":
-            xjob = cross_job(n, int(null_idx.size), cfg.r)
-            cross = lower(xjob, *_tile_geometry(xjob, cfg, extra))
-            ca, cb = _stage1(cross, feats_t, feats_t[null_t])
-            ha, hb = verify_pairs(codes_t, lens_t, codes_t[null_t],
-                                  lens_t[null_t], ca, cb, cfg.threshold,
-                                  device=dev)
-            hits = [(ha, null_idx[hb])]
-        else:
-            hits = []
-            for k in range(cfg.r):
-                _, _, _, rr, rs = pairs_of_range_2src(plan2, k)
-                if rr.size == 0:
-                    continue
-                hits.append(_match_pairs_chunked(
-                    feats_t, codes_t, lens_t, rr, null_idx[rs],
-                    cfg.threshold, cfg.filter_margin, dev))
-        for ha, hb in hits:
-            for a, b in zip(ha, hb):
-                a, b = int(a), int(b)
-                if a != b:
-                    matches.add((min(a, b), max(a, b)))
-        total += plan2.total_pairs
-        _sync()
-        timings["cross_s"] = time.perf_counter() - t_cross
+        with trace.span("pipeline.cross") as cross_sp:
+            bdm2 = TwoSourceBDM(
+                bdm_r=np.full((1, 1), n, np.int64),
+                bdm_s=np.full((1, 1), null_idx.size, np.int64))
+            plan2 = plan_pair_range_2src(bdm2, cfg.r)
+            extra["null_key_pairs"] = plan2.total_pairs
+            feats_t = torch.from_numpy(feats).to(dev)
+            codes_t = torch.from_numpy(codes).to(dev)
+            lens_t = torch.from_numpy(lens).to(dev)
+            null_t = torch.from_numpy(null_idx).to(dev)
+            if cfg.executor == "catalog":
+                with trace.span("compiler.lower"):
+                    xjob = cross_job(n, int(null_idx.size), cfg.r)
+                    cross = lower(xjob, *_tile_geometry(xjob, cfg, extra))
+                with trace.span("stage1.score"):
+                    ca, cb = _stage1(cross, feats_t, feats_t[null_t])
+                with trace.span("stage2.verify"):
+                    ha, hb = verify_pairs(codes_t, lens_t, codes_t[null_t],
+                                          lens_t[null_t], ca, cb,
+                                          cfg.threshold, device=dev)
+                hits = [(ha, null_idx[hb])]
+            else:
+                hits = []
+                for k in range(cfg.r):
+                    _, _, _, rr, rs = pairs_of_range_2src(plan2, k)
+                    if rr.size == 0:
+                        continue
+                    hits.append(_match_pairs_chunked(
+                        feats_t, codes_t, lens_t, rr, null_idx[rs],
+                        cfg.threshold, cfg.filter_margin, dev))
+            for ha, hb in hits:
+                for a, b in zip(ha, hb):
+                    a, b = int(a), int(b)
+                    if a != b:
+                        matches.add((min(a, b), max(a, b)))
+            total += plan2.total_pairs
+            _sync()
+        timings["cross_s"] = cross_sp.seconds
 
     _sync()
-    timings["total_s"] = time.perf_counter() - t_start
     return ERResult(
         matches=matches,
         total_pairs=int(total),

@@ -56,6 +56,7 @@ oracle.
 """
 from __future__ import annotations
 
+import itertools
 import threading
 import time
 from dataclasses import dataclass, field as dataclasses_field
@@ -81,6 +82,7 @@ from .compiler import (COMMS_POLICIES, GEOMETRY_LATTICE, DeviceKilledError,
 from .compiler.faults import FaultInjector
 from .compiler.ir import NCOLS
 from .pipeline import featurize
+from . import trace
 
 __all__ = ["ServiceConfig", "ERService", "MatchResponse",
            "ServiceUnavailable", "compile_counter"]
@@ -198,8 +200,11 @@ class _RequestContext:
     batch's k slices share one budget instead of re-arming k fresh
     ones), and supervised reports accumulate here instead of on the
     service instance (where overlapping requests from the batcher's
-    threads would clobber each other)."""
+    threads would clobber each other). ``id`` is the ``super_batch``
+    attribute of the request's spans: one ``match`` call, or one
+    super-batch of :class:`~.batcher.ERBatcher`."""
     deadline_at: Optional[float] = None   # absolute perf_counter deadline
+    id: int = 0
     reports: List[SupervisedReport] = dataclasses_field(
         default_factory=list)
 
@@ -236,10 +241,11 @@ class _PlannedBatch:
     the batch into the vocab/BDM), consumed by ``_execute_batch``
     (device-side, lock-free). The split is what lets the batcher
     pipeline the next batch's planning under the current batch's
-    kernels."""
+    kernels. ``t0_ns`` is the start of its ``service.plan_batch`` span
+    (``time.time_ns()``)."""
     nq: int
     bucket: int
-    t0: float
+    t0_ns: int
     record: bool
     planned: int                  # live pairs planned across the jobs
     jobs: List[_PlannedJob]
@@ -378,6 +384,7 @@ class ERService:
         # scoped state (deadline, reports) lives on _RequestContext, NOT
         # here: an instance field would be clobbered across threads.
         self._host_lock = threading.RLock()
+        self._ctx_ids = itertools.count(1)
         self._buckets = tuple(sorted(cfg.query_buckets))
         if not self._buckets:
             raise ValueError("query_buckets must be non-empty")
@@ -748,7 +755,8 @@ class ERService:
         deadline_at = (time.perf_counter() + self.cfg.request_deadline_s
                        if self.cfg.request_deadline_s is not None
                        else None)
-        return _RequestContext(deadline_at=deadline_at)
+        return _RequestContext(deadline_at=deadline_at,
+                               id=next(self._ctx_ids))
 
     def match(self, query_titles: Sequence[str],
               _record: bool = True) -> "MatchResponse":
@@ -812,12 +820,19 @@ class ERService:
         fixed-shape catalogs. Everything that touches mutable service
         state happens here under the host lock; the returned
         :class:`_PlannedBatch` is self-contained, so ``_execute_batch``
-        can run it on another thread while the next batch plans."""
-        t0 = time.perf_counter()
+        can run it on another thread while the next batch plans. Its
+        span is ``service.plan_batch``."""
+        with trace.span("service.plan_batch", super_batch=ctx.id) as sp:
+            return self._plan_jobs(titles, record, sp.start_ns)
+
+    def _plan_jobs(self, titles: List[str], record: bool,
+                   t0_ns: int) -> _PlannedBatch:
+        """The body of :meth:`_plan_batch`, inside its span."""
         cfg = self.cfg
         nq = len(titles)
         bucket = self._bucket(nq)
-        codes, lens, feats = featurize(titles, cfg)
+        with trace.span("encode.featurize"):
+            codes, lens, feats = featurize(titles, cfg)
         jobs: List[_PlannedJob] = []
         planned = 0
         with self._host_lock:
@@ -836,9 +851,12 @@ class ERService:
                 planner = (plan_block_split_2src
                            if cfg.strategy == "block_split"
                            else plan_pair_range_2src)
-                plan = planner(bdm2, cfg.r)
+                with trace.span("compiler.plan"):
+                    plan = planner(bdm2, cfg.r)
                 planned += plan.total_pairs
-                cat = lower(plan_to_job(plan), self._block_m, self._block_n)
+                with trace.span("compiler.lower"):
+                    cat = lower(plan_to_job(plan), self._block_m,
+                                self._block_n)
                 cplan = None
                 if self._comms_scorer is not None:
                     # Plan on the chunk-padded catalog so the locality
@@ -866,8 +884,10 @@ class ERService:
             # ---- match_⊥, cross-restricted: null queries × corpus ----
             null_q = np.flatnonzero(qb < 0)
             if cfg.match_missing_keys and null_q.size:
-                cat = lower(cross_job(self.n_corpus, int(null_q.size),
-                                      cfg.r), self._block_m, self._block_n)
+                with trace.span("compiler.lower"):
+                    cat = lower(cross_job(self.n_corpus, int(null_q.size),
+                                          cfg.r),
+                                self._block_m, self._block_n)
                 planned += cat.total_pairs
                 jobs.append(_PlannedJob(
                     feats_a=self._feats_all, catalog=cat,
@@ -881,9 +901,10 @@ class ERService:
             # by the null-query job above) ----
             if cfg.match_missing_keys and self._feats_null is not None \
                     and keyed_q.size:
-                cat = lower(cross_job(int(self._null_idx.size),
-                                      int(keyed_q.size), cfg.r),
-                            self._block_m, self._block_n)
+                with trace.span("compiler.lower"):
+                    cat = lower(cross_job(int(self._null_idx.size),
+                                          int(keyed_q.size), cfg.r),
+                                self._block_m, self._block_n)
                 planned += cat.total_pairs
                 jobs.append(_PlannedJob(
                     feats_a=self._feats_null, catalog=cat,
@@ -891,33 +912,19 @@ class ERService:
                     codes_a=self._n_codes, lens_a=self._n_lens,
                     codes_b=codes[keyed_q], lens_b=lens[keyed_q],
                     map_a=self._null_idx, map_b=keyed_q))
-        return _PlannedBatch(nq=nq, bucket=bucket, t0=t0, record=record,
-                             planned=int(planned), jobs=jobs)
+        return _PlannedBatch(nq=nq, bucket=bucket, t0_ns=t0_ns,
+                             record=record, planned=int(planned), jobs=jobs)
 
     def _execute_batch(self, pb: _PlannedBatch,
                        ctx: _RequestContext) -> "MatchResponse":
         """Device-side half: run each planned job's stage 1 + exact
         stage 2, demap survivors to (corpus_index, batch_index). Holds
         no host lock while kernels run — the batcher overlaps the next
-        batch's ``_plan_batch`` with this."""
-        cfg = self.cfg
-        matches = MatchResponse()
-        n_reports = len(ctx.reports)
-        for job in pb.jobs:
-            ca, cb = self._score(job.feats_a, job.catalog, job.q_buf, ctx,
-                                 comms_plan=job.comms_plan)
-            ha, hb = verify_pairs(job.codes_a, job.lens_a,
-                                  job.codes_b, job.lens_b,
-                                  ca, cb, cfg.threshold, device=self.device)
-            if job.map_a is None:
-                matches.update(
-                    (int(a), int(job.map_b[b])) for a, b in zip(ha, hb))
-            else:
-                matches.update(
-                    (int(job.map_a[a]), int(job.map_b[b]))
-                    for a, b in zip(ha, hb))
-        for report in ctx.reports[n_reports:]:
-            matches._fold(report)
+        batch's ``_plan_batch`` with this. Its span is
+        ``service.execute_batch``; ``stats["seconds"]`` adds the time
+        from the plan span's start to this span's end."""
+        with trace.span("service.execute_batch", super_batch=ctx.id) as sp:
+            matches = self._run_jobs(pb, ctx)
         if pb.record:
             with self._host_lock:
                 s = self.stats
@@ -925,13 +932,40 @@ class ERService:
                 s["queries"] += pb.nq
                 s["planned_pairs"] += pb.planned
                 s["matches"] += len(matches)
-                s["seconds"] += time.perf_counter() - pb.t0
+                s["seconds"] += (sp.end_ns - pb.t0_ns) * 1e-9
                 s["bucket_hits"][pb.bucket] += 1
                 s["retries"] += max(matches.attempts - 1, 0)
                 s["recovered_tiles"] += matches.recovered_tiles
                 s["degraded"] += int(matches.degraded)
                 s["steals"] += matches.steals
                 s["stolen_tiles"] += matches.stolen_tiles
+        return matches
+
+    def _run_jobs(self, pb: _PlannedBatch,
+                  ctx: _RequestContext) -> "MatchResponse":
+        """The body of :meth:`_execute_batch`, inside its span: per job
+        ``stage1.score``, ``stage2.verify`` and ``service.demap``."""
+        cfg = self.cfg
+        matches = MatchResponse()
+        n_reports = len(ctx.reports)
+        for job in pb.jobs:
+            with trace.span("stage1.score"):
+                ca, cb = self._score(job.feats_a, job.catalog, job.q_buf,
+                                     ctx, comms_plan=job.comms_plan)
+            with trace.span("stage2.verify"):
+                ha, hb = verify_pairs(job.codes_a, job.lens_a,
+                                      job.codes_b, job.lens_b, ca, cb,
+                                      cfg.threshold, device=self.device)
+            with trace.span("service.demap"):
+                if job.map_a is None:
+                    matches.update(
+                        (int(a), int(job.map_b[b])) for a, b in zip(ha, hb))
+                else:
+                    matches.update(
+                        (int(job.map_a[a]), int(job.map_b[b]))
+                        for a, b in zip(ha, hb))
+        for report in ctx.reports[n_reports:]:
+            matches._fold(report)
         return matches
 
     def warmup(self) -> int:
