@@ -42,6 +42,15 @@ The third slice (the dense kernel, tuning, the supervisor, the service):
                (``torch.mm`` with ``out_dtype=float32`` in bf16), the
                product alone (``gemm_ms``) and the bound, the bf16 case in
                turns with the earlier design (the FMA kernel);
+  V    verifier — stage 2's bit-vector kernel (``csrc/edit_distance.cu``)
+               on the first 57,344 stage-1 survivors of DS1 and of a DS2-law
+               corpus (``make_publications(120,000)``, prefix_len 4): its
+               distances equal to the plain DP loop's, its similarities bit
+               for bit, one launch a call, ``verify_pairs`` keeping the same
+               pairs on the kernel route and on ``impl="torch"``; CUDA-event
+               times of the kernel and of the plain loop (chunks of 8,192)
+               beside the bound (bytes read once at 3.35 TB/s), and a whole
+               ``verify_pairs`` call on either route on the host clock;
   ER-t tuned   — ``run_er(tune_tiles=True)`` at DS1 for every strategy:
                the picked geometry, tiles, matches (equal to phase 4's) and
                stage-1 seconds beside 128x128's;
@@ -52,7 +61,8 @@ The third slice (the dense kernel, tuning, the supervisor, the service):
                ``ServiceConfig``, 64 micro-batches (a null-key query, a
                never-seen block, one batch of 512): streaming == batch
                against ``run_er`` over corpus ++ queries, no build or load
-               in steady state, queries/s, p50/p99 ms per batch, launches
+               in steady state, every ``verify_pairs`` call on the kernel
+               route (``stage2_stats``, one launch a call with pairs), queries/s, p50/p99 ms per batch, launches
                per batch, the device's idle share (``torch.profiler``); the
                plain route on the card (equal but for near-threshold
                pairs); ``ERBatcher`` with 4 submitting threads; the
@@ -304,6 +314,9 @@ def _kernel_label(fn):
         bm, bn = int(m.group(2)), int(m.group(3))
         return (f"dense {'bf16' if 'bfloat16' in m.group(1) else 'f32'} "
                 f"{bm}x{bn}", pair_sim.dense_smem_bytes(bm, bn))
+    m = re.search(r"edit_similarity_kernelILi(\d)E", fn)
+    if m:
+        return f"edit verifier words={m.group(1)}", 0
     if "grouped_mm_tma" in fn:
         return "grouped tma bf16 block_t=128", grouped_mm.smem_bytes("tma")
     m = re.search(r"grouped_mm_decodeILi8EN\w*?DecodeCfgILi2ELi(\d)E", fn)
@@ -397,9 +410,19 @@ def build_phase():
         if got != grouped_mm.smem_bytes(kernel):
             raise AssertionError(f"grouped shared-memory model disagrees "
                                  f"with the {kernel} kernel: {got}")
+    from repro_torch.kernels import edit_distance
+    elib = edit_distance._lib()
+    for n in range(0, 300):
+        try:
+            want = edit_distance.words_for(n)
+        except ValueError:
+            want = -1
+        if elib.edit_distance_words(n) != want:
+            raise AssertionError(f"the verifier's word model disagrees with "
+                                 f"the kernel at width {n}")
     log("shared-memory models agree with the kernels (the catalog lattice, "
         "the bf16 TMA dense kernel's lattice, flash at every head dim, "
-        "every TMA-fed grouped kernel)")
+        "every TMA-fed grouped kernel), and the verifier's words a width")
     log(f"yardstick: the grouped kernel's earlier design built from "
         f"{YARDSTICK_GROUPED.relative_to(ROOT)} into {ylib}")
     return seconds, ylib
@@ -1011,6 +1034,147 @@ def dense_phase(torch, np, ds):
 
 
 # ---------------------------------------------------------------------------
+# V: stage 2's bit-vector verifier
+# ---------------------------------------------------------------------------
+
+V_PAIRS = 57_344       # ~one DS2 service super-batch of survivors
+V_DS2_N = 120_000      # make_publications at this size: DS2's block law
+
+
+def _survivors(np, titles, cfg, n_pairs):
+    """Stage-1 survivors of ``run_er``'s PairRange catalog over ``titles``
+    (the first ``n_pairs``) with the codes and lengths in the plan's row
+    order, as ``run_er`` hands them to ``verify_pairs``."""
+    from repro_torch.er import compile_catalog, featurize, plan_job
+    from repro_torch.er.compiler import execute
+
+    codes, lens, feats = featurize(titles, cfg)
+    jp = plan_job(titles, cfg)
+    cat, _ = compile_catalog(jp.plan, cfg)
+    g = jp.to_global
+    ca, cb = execute(cat, feats[g], threshold=cfg.threshold
+                     - cfg.filter_margin, device="cuda")
+    return codes[g], lens[g], ca[:n_pairs], cb[:n_pairs], ca.size
+
+
+def verify_phase(torch, np, ds):
+    """V: ``kernels.edit_distance.edit_similarity_rows`` on ~57,000
+    stage-1 survivors of DS1 and of a DS2-law corpus against the plain DP
+    loop on the card (distances exactly, similarities bit for bit),
+    ``verify_pairs`` on the kernel route against ``impl="torch"``, then
+    CUDA-event times of the kernel and of the plain loop on the same pairs
+    beside the bound (bytes read once at 3.35 TB/s), and host-clock times
+    of a whole ``verify_pairs`` call on either route."""
+    from repro_torch.er import ERConfig, make_publications
+    from repro_torch.er.compiler import stage2_stats, verify_pairs
+    from repro_torch.er.compiler.execute import _VERIFY_CHUNK
+    from repro_torch.er.similarity import edit_distance, edit_similarity
+    from repro_torch.kernels import edit_distance as kernel
+    from repro_torch.kernels import ops
+
+    phase("V stage 2: the bit-vector verifier (csrc/edit_distance.cu) vs "
+          "the plain DP loop (er/similarity.py)")
+    sets = (("DS1", ds.titles, ERConfig()),
+            ("DS2-law", make_publications(V_DS2_N, seed=1).titles,
+             ERConfig(prefix_len=4)))
+    rows = {}
+    for label, titles, cfg in sets:
+        t0 = time.perf_counter()
+        codes, lens, ra, rb, total = _survivors(np, titles, cfg, V_PAIRS)
+        c = torch.from_numpy(codes).cuda()
+        n = torch.from_numpy(lens).cuda()
+        ia = torch.from_numpy(ra).cuda()
+        ib = torch.from_numpy(rb).cuda()
+        p, width = ra.size, codes.shape[1]
+        ops.reset_launch_counts()
+        sim, dist = kernel.edit_similarity_rows(c, n, c, n, ia, ib,
+                                                distances=True)
+        torch.cuda.synchronize()
+        if ops.launch_counts()["edit_similarity_rows"] != 1:
+            raise AssertionError(f"{ops.launch_counts()} for one call")
+        want_d = torch.cat([edit_distance(c[ia[k:k + _VERIFY_CHUNK]],
+                                          n[ia[k:k + _VERIFY_CHUNK]],
+                                          c[ib[k:k + _VERIFY_CHUNK]],
+                                          n[ib[k:k + _VERIFY_CHUNK]])
+                            for k in range(0, p, _VERIFY_CHUNK)])
+        if not torch.equal(dist, want_d):
+            bad = int((dist != want_d).sum())
+            raise AssertionError(f"{label}: {bad} of {p} distances differ "
+                                 f"from the plain DP")
+
+        def plain(c=c, n=n, ia=ia, ib=ib, p=p):
+            return torch.cat([edit_similarity(c[ia[k:k + _VERIFY_CHUNK]],
+                                              n[ia[k:k + _VERIFY_CHUNK]],
+                                              c[ib[k:k + _VERIFY_CHUNK]],
+                                              n[ib[k:k + _VERIFY_CHUNK]])
+                              for k in range(0, p, _VERIFY_CHUNK)])
+
+        def kern(c=c, n=n, ia=ia, ib=ib):
+            return kernel.edit_similarity_rows(c, n, c, n, ia, ib)
+
+        if sim.cpu().numpy().tobytes() != plain().cpu().numpy().tobytes():
+            raise AssertionError(f"{label}: similarities differ from the "
+                                 f"plain route's")
+        before = dict(stage2_stats)
+        ops.reset_launch_counts()
+        got = verify_pairs(c, n, c, n, ra, rb, cfg.threshold)
+        want = verify_pairs(c, n, c, n, ra, rb, cfg.threshold, impl="torch")
+        if ops.launch_counts()["edit_similarity_rows"] != 1:
+            raise AssertionError(f"{ops.launch_counts()} for one "
+                                 f"verify_pairs call on each route")
+        if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"{label}: verify_pairs differs between "
+                                 f"the kernel route and impl='torch'")
+        if (stage2_stats["kernel_calls"] - before["kernel_calls"],
+                stage2_stats["plain_calls"] - before["plain_calls"]) != (1, 1):
+            raise AssertionError(f"stage2_stats {stage2_stats} after one "
+                                 f"call on each route (before {before})")
+        d = dist.cpu().numpy()
+        log(f"{label}: {p} survivors (of {total}) at width {width}, "
+            f"mean lengths {float(lens[ra].mean()):.1f} / "
+            f"{float(lens[rb].mean()):.1f}, distances equal to the plain DP "
+            f"(mean {d.mean():.2f}, max {d.max()}), similarities bit for "
+            f"bit, verify_pairs keeps the same {got[0].size} pairs on both "
+            f"routes; {time.perf_counter() - t0:.1f} s")
+
+        # inputs read once: both index arrays, the distinct rows touched
+        # with their lengths; the f32 similarities written once
+        touched = np.unique(np.concatenate([ra, rb])).size
+        nbytes = 16 * p + touched * (width + 4) + 4 * p
+        bound = nbytes / PEAK_BYTES * 1e3
+        k1 = _time_ms(torch, kern, 20)
+        p1 = _time_ms(torch, plain, 3)
+        p2 = _time_ms(torch, plain, 3)
+        k2 = _time_ms(torch, kern, 20)
+        ms = (k1 + k2) / 2
+
+        def host_ms(impl, reps):
+            verify_pairs(c, n, c, n, ra, rb, cfg.threshold, impl=impl)
+            t = time.perf_counter()
+            for _ in range(reps):
+                verify_pairs(c, n, c, n, ra, rb, cfg.threshold, impl=impl)
+            return (time.perf_counter() - t) / reps * 1e3
+
+        h_kernel, h_plain = host_ms("auto", 20), host_ms("torch", 3)
+        rows[label] = dict(pairs=p, width=width, ms=ms,
+                           plain_ms=(p1 + p2) / 2, bound_ms=bound,
+                           bound_by="bytes", bytes=nbytes,
+                           verify_pairs_ms=h_kernel,
+                           verify_pairs_plain_ms=h_plain)
+        log(f"{label}: kernel {k1:.4f} / {k2:.4f} ms  plain loop {p1:.3f} / "
+            f"{p2:.3f} ms ({-(-p // _VERIFY_CHUNK)} chunks of "
+            f"{_VERIFY_CHUNK})  bound {bound:.4f} ms (bytes: "
+            f"{nbytes / 1e6:.2f} MB at 3.35 TB/s) -> {bound / ms:.1%} of the "
+            f"bound, {(p1 + p2) / 2 / ms:.0f}x the plain loop; a whole "
+            f"verify_pairs call (upload, launch, copy back, threshold) "
+            f"{h_kernel:.3f} ms on the kernel route vs {h_plain:.2f} ms on "
+            f"impl='torch' (host clock)")
+        del c, n, ia, ib, sim, dist, want_d
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # ER-t / ER-f: tuned and supervised run_er at DS1
 # ---------------------------------------------------------------------------
 
@@ -1163,14 +1327,39 @@ def er_service_phase(torch, np, ds):
         f"{warm_s:.3f} s ({warm.count} builds/loads in warmup); "
         f"{len(queries)} queries in {len(batches)} batches")
 
+    from repro_torch.er import service as service_mod
+    from repro_torch.er.compiler import stage2_stats
+    calls = []
+    inner = service_mod.verify_pairs
+
+    def counted(*args, **kwargs):
+        calls.append(len(args[4]))
+        return inner(*args, **kwargs)
+
+    s2 = dict(stage2_stats)
     ops.reset_launch_counts()
-    with compile_counter() as steady:
-        responses, ms = _serve(svc, batches)
+    service_mod.verify_pairs = counted
+    try:
+        with compile_counter() as steady:
+            responses, ms = _serve(svc, batches)
+    finally:
+        service_mod.verify_pairs = inner
     launches = ops.launch_counts()
+    s2 = {k: stage2_stats[k] - s2[k] for k in s2}
     if steady.count != 0:
         raise AssertionError(f"{steady.count} builds/loads in steady state")
     if launches["pair_scores_catalog_compact"] == 0:
         raise AssertionError("the service launched no compact kernel")
+    with_pairs = sum(1 for n in calls if n)
+    if (s2["kernel_calls"], s2["kernel_pairs"], s2["plain_calls"],
+            launches["edit_similarity_rows"]) != (len(calls), sum(calls), 0,
+                                                  with_pairs):
+        raise AssertionError(f"stage 2 off the kernel route: stage2_stats "
+                             f"{s2}, launches {launches}, {len(calls)} "
+                             f"verify_pairs calls ({with_pairs} with pairs)")
+    log(f"stage 2: {len(calls)} verify_pairs calls, {sum(calls)} survivors; "
+        f"stage2_stats {s2}; {launches['edit_similarity_rows']} verifier "
+        f"launches (one a call with pairs), no plain call")
     served = _union(responses, batches)
     t0 = time.perf_counter()
     oneshot = run_er(corpus + queries, ERConfig(strategy="pair_range"),
@@ -3233,6 +3422,7 @@ def main() -> int:
     overflow_launches = overflow_phase(ds)
     times = timing_phase(torch, np, ds, kstats)
     dstats, dense_launches, dense_times = dense_phase(torch, np, ds)
+    verify_times = verify_phase(torch, np, ds)
     er_tuned_phase(ds, ds1_rows)
     er_faults_phase(ds)
     er_s_launches, er_s = er_service_phase(torch, np, ds)
@@ -3316,6 +3506,24 @@ def main() -> int:
                   f"side only must score within {NEAR} of the threshold",
         **{k: v for k, v in dense_times["float32"].items() if k != "route"},
         **{f"bf16_{k}": v for k, v in dense_times["bfloat16"].items()}))
+    summary.append(dict(
+        name="edit_similarity_rows", route="cuda",
+        source="src/repro_torch/csrc/edit_distance.cu",
+        replaces="none: src/repro/er/similarity.py::edit_distance is a "
+                 "lax.scan, ported first as a PyTorch loop (the plain route)",
+        launches=main_launches["edit_similarity_rows"],
+        er_s_launches=er_s_launches["edit_similarity_rows"],
+        er_m_launches=er_m_launches["edit_similarity_rows"],
+        bl_launches=bl_launches["edit_similarity_rows"],
+        ex_launches=ex_launches["edit_similarity_rows"],
+        path="DS1 pair_range run_er (stage 2 and the match_⊥ cross job); "
+             "er_s_launches: ER-s's 64 batches; times in phase V on the "
+             "first 57,344 stage-1 survivors of DS1, ds2_* on those of a "
+             "DS2-law corpus (make_publications(120,000), prefix_len 4); "
+             "verify_pairs_ms: a whole call on the host clock",
+        tolerance="exact: distances equal, similarities bit for bit",
+        **verify_times["DS1"],
+        **{f"ds2_{k}": v for k, v in verify_times["DS2-law"].items()}))
     flash = lm_times["flash_attention"]
     phi3 = lm_times["flash_attention[phi-3-vision]"]
     summary.append(dict(

@@ -34,6 +34,7 @@ from .compiler import (  # noqa: F401
     schedule_tiles,
     score_catalog,
     stage1_stats,
+    stage2_stats,
     tile_costs,
     verify_pairs,
 )

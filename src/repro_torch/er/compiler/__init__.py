@@ -81,5 +81,6 @@ from .execute import (  # noqa: F401
     score_catalog,
     shard_sane,
     stage1_stats,
+    stage2_stats,
     verify_pairs,
 )

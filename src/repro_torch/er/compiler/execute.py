@@ -42,8 +42,8 @@ from .schedule import (NoHealthyDevicesError, Schedule, schedule_tiles,
                        tile_costs, tiles_for_devices)
 
 __all__ = ["CatalogScorer", "execute", "execute_supervised", "make_scorer",
-           "score_catalog", "stage1_stats", "verify_pairs", "match_catalog",
-           "shard_sane", "ShardRecord", "SupervisedReport",
+           "score_catalog", "stage1_stats", "stage2_stats", "verify_pairs",
+           "match_catalog", "shard_sane", "ShardRecord", "SupervisedReport",
            "RecoveryFailedError"]
 
 
@@ -1011,18 +1011,34 @@ def execute_supervised(catalog: TileCatalog, feats_a, feats_b=None, *,
 
 _VERIFY_CHUNK = 8_192
 
+# Host-side instrumentation of stage 2, accumulated over calls: calls of
+# :func:`verify_pairs` and the pairs they verified, on the CUDA kernel
+# route (``kernels/edit_distance.py``, one launch a call) and on the plain
+# route (``similarity.edit_similarity``, chunked).
+stage2_stats: dict = {"kernel_calls": 0, "kernel_pairs": 0,
+                      "plain_calls": 0, "plain_pairs": 0}
+
 
 def verify_pairs(codes_a, lens_a, codes_b, lens_b, rows_a, rows_b,
                  threshold: float, chunk: int = _VERIFY_CHUNK,
-                 device="cuda") -> Tuple[np.ndarray, np.ndarray]:
+                 device="cuda", impl: str = "auto"
+                 ) -> Tuple[np.ndarray, np.ndarray]:
     """Stage 2: exact normalized edit similarity >= threshold on candidate
-    row pairs, in chunks of ``chunk`` pairs on ``device``. Codes and
-    lengths (numpy or tensors) move to the device once; the similarities
-    come back as f32 and are compared with the threshold on the host, as
-    in the JAX package."""
+    row pairs on ``device``. Codes and lengths (numpy or tensors) move to
+    the device once; the similarities come back as f32 and are compared
+    with the threshold on the host, as in the JAX package.
+
+    ``impl`` as :func:`repro_torch.kernels.ops.resolve_impl` resolves it
+    for ``device``: on the CUDA route every pair goes through one launch of
+    the bit-vector kernel (one upload of the row indices, one copy of the
+    similarities back); on the plain route the PyTorch DP loop runs in
+    chunks of ``chunk`` pairs. Both give the same f32 similarities, bit for
+    bit, so the same pairs."""
+    from ...kernels import edit_distance, ops
     from ..similarity import edit_similarity
 
     dev = resolve_device(device)
+    route = ops.resolve_impl(impl, dev)
     ca, la = _to_device(codes_a, dev), _to_device(lens_a, dev)
     if codes_b is codes_a and lens_b is lens_a:
         cb, lb = ca, la
@@ -1030,8 +1046,26 @@ def verify_pairs(codes_a, lens_a, codes_b, lens_b, rows_a, rows_b,
         cb, lb = _to_device(codes_b, dev), _to_device(lens_b, dev)
     rows_a = np.asarray(rows_a, np.int64)
     rows_b = np.asarray(rows_b, np.int64)
+    n_pairs = int(rows_a.shape[0])
+    if route == "cuda":
+        stage2_stats["kernel_calls"] += 1
+        stage2_stats["kernel_pairs"] += n_pairs
+        if n_pairs == 0:
+            return rows_a[:0], rows_b[:0]
+        for rows, n, side in ((rows_a, ca.shape[0], "a"),
+                              (rows_b, cb.shape[0], "b")):
+            if rows.min() < 0 or rows.max() >= n:
+                raise IndexError(f"rows_{side} out of range for {n} rows")
+        rows = torch.from_numpy(np.stack([rows_a, rows_b])).to(ca.device)
+        sim = edit_distance.edit_similarity_rows(
+            ca, la.to(torch.int32), cb, lb.to(torch.int32), rows[0],
+            rows[1]).cpu().numpy()
+        sel = np.flatnonzero(sim >= threshold)
+        return rows_a[sel], rows_b[sel]
+    stage2_stats["plain_calls"] += 1
+    stage2_stats["plain_pairs"] += n_pairs
     hit_a, hit_b = [], []
-    for lo in range(0, rows_a.shape[0], chunk):
+    for lo in range(0, n_pairs, chunk):
         a = rows_a[lo:lo + chunk]
         b = rows_b[lo:lo + chunk]
         ia = torch.from_numpy(a).to(dev)
@@ -1073,4 +1107,4 @@ def match_catalog(catalog: TileCatalog, feats_a, codes_a, lens_a, *,
     return verify_pairs(codes_a, lens_a, codes_b, lens_b, cand_a, cand_b,
                         threshold,
                         device=mesh.first_device if mesh is not None
-                        else device)
+                        else device, impl=impl)

@@ -142,11 +142,12 @@ class ERResult:
 
 
 def _match_pairs_chunked(feats, codes, lens, rows_a, rows_b, threshold,
-                         margin, device) -> Tuple[np.ndarray, np.ndarray]:
+                         margin, device, impl: str = "auto"
+                         ) -> Tuple[np.ndarray, np.ndarray]:
     """REFERENCE executor (``ERConfig.executor = "reference"``): filter-
     and-verify over materialized (rows_a, rows_b). Stage 1 is a paired
     f32 dot on the device, compared with the threshold on the host; stage
-    2 the exact verifier."""
+    2 the exact verifier on the route ``impl`` picks."""
     cand_a, cand_b = [], []
     for lo in range(0, rows_a.shape[0], _CHUNK):
         a = rows_a[lo:lo + _CHUNK]
@@ -160,7 +161,7 @@ def _match_pairs_chunked(feats, codes, lens, rows_a, rows_b, threshold,
     ca = np.concatenate(cand_a) if cand_a else np.zeros(0, np.int64)
     cb = np.concatenate(cand_b) if cand_b else np.zeros(0, np.int64)
     return verify_pairs(codes, lens, codes, lens, ca, cb, threshold,
-                        device=device)
+                        device=device, impl=impl)
 
 
 def _reference_reducer_rows(plan, r: int) -> List[Tuple[np.ndarray, np.ndarray]]:
@@ -504,7 +505,8 @@ def _run_er(titles, config, block_ids, fault_injector, feedback, mesh, axis,
             ca, cb = _stage1(catalog, g_feats, **on_mesh)
         with trace.span("stage2.verify") as s2:
             ha, hb = verify_pairs(g_codes, g_lens, g_codes, g_lens, ca, cb,
-                                  cfg.threshold, device=dev)
+                                  cfg.threshold, device=dev,
+                                  impl=cfg.kernel_impl)
             _sync()
         timings["stage1_s"] = s1.seconds
         timings["stage2_s"] = s2.seconds
@@ -524,7 +526,7 @@ def _run_er(titles, config, block_ids, fault_injector, feedback, mesh, axis,
                 t0 = time.perf_counter()
                 ha, hb = _match_pairs_chunked(
                     g_feats, g_codes, g_lens, ra, rb,
-                    cfg.threshold, cfg.filter_margin, dev)
+                    cfg.threshold, cfg.filter_margin, dev, cfg.kernel_impl)
                 reducer_seconds[k] = time.perf_counter() - t0
                 for a, b in zip(to_global[ha], to_global[hb]):
                     matches.add((min(int(a), int(b)), max(int(a), int(b))))
@@ -551,7 +553,8 @@ def _run_er(titles, config, block_ids, fault_injector, feedback, mesh, axis,
                 with trace.span("stage2.verify"):
                     ha, hb = verify_pairs(codes_t, lens_t, codes_t[null_t],
                                           lens_t[null_t], ca, cb,
-                                          cfg.threshold, device=dev)
+                                          cfg.threshold, device=dev,
+                                          impl=cfg.kernel_impl)
                 hits = [(ha, null_idx[hb])]
             else:
                 hits = []
@@ -561,7 +564,8 @@ def _run_er(titles, config, block_ids, fault_injector, feedback, mesh, axis,
                         continue
                     hits.append(_match_pairs_chunked(
                         feats_t, codes_t, lens_t, rr, null_idx[rs],
-                        cfg.threshold, cfg.filter_margin, dev))
+                        cfg.threshold, cfg.filter_margin, dev,
+                        cfg.kernel_impl))
             for ha, hb in hits:
                 for a, b in zip(ha, hb):
                     a, b = int(a), int(b)

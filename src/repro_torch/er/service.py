@@ -955,7 +955,8 @@ class ERService:
             with trace.span("stage2.verify"):
                 ha, hb = verify_pairs(job.codes_a, job.lens_a,
                                       job.codes_b, job.lens_b, ca, cb,
-                                      cfg.threshold, device=self.device)
+                                      cfg.threshold, device=self.device,
+                                      impl=cfg.kernel_impl)
             with trace.span("service.demap"):
                 if job.map_a is None:
                     matches.update(
@@ -988,9 +989,12 @@ class ERService:
         if self.n_corpus == 0:
             return 0
         if ops.resolve_impl(self.cfg.kernel_impl, self.device) == "cuda":
-            # Build and load here, on the caller's thread, so neither the
-            # autotune sweep's first leg nor a batcher thread pays for it.
+            # Build (side by side) and load here, on the caller's thread,
+            # so neither the autotune sweep's first leg nor a batcher thread
+            # pays for it: stage 1's kernels and stage 2's verifier.
+            build.build_all(["pair_sim", "edit_distance"])
             build.load("pair_sim")
+            build.load("edit_distance")
         reps = -(-self._buckets[-1] // self.n_corpus)
         pool = self._titles * reps
         if self.cfg.autotune_tiles:

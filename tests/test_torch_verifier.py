@@ -1,7 +1,8 @@
-"""The port's stage-2 verifier (torch.cummin DP) against the plain
-O(len_a·len_b) reference and the JAX package's lax.scan version: integer
-distances must be equal exactly, similarities bit for bit, and
-``verify_pairs`` must keep the same pairs."""
+"""The port's stage-2 verifier (torch.cummin DP, and the CUDA kernel's
+bit-vector recurrence in its NumPy twin) against the plain O(len_a·len_b)
+reference and the JAX package's lax.scan version: integer distances must
+be equal exactly, similarities bit for bit, and ``verify_pairs`` must keep
+the same pairs."""
 import numpy as np
 import pytest
 
@@ -17,6 +18,7 @@ from repro_torch.er.compiler import verify_pairs  # noqa: E402
 from repro_torch.er.encode import encode_titles  # noqa: E402
 from repro_torch.er.similarity import (edit_distance, edit_distance_np,  # noqa: E402
                                        edit_similarity)
+from repro_torch.kernels.edit_distance import bitvector_distance_np  # noqa: E402
 import torch_parity  # noqa: E402,F401  (one torch thread per test worker)
 
 ALPHABET = list("abcde xyz0")
@@ -89,3 +91,22 @@ def test_verify_pairs_needs_a_card_unless_asked_for_the_cpu():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         verify_pairs(codes, lens, codes, lens, np.array([0]), np.array([1]),
                      0.5)
+
+
+@pytest.mark.parametrize("max_len,seed", [(64, 5), (100, 6)])
+def test_bitvector_twin_equals_the_reference(max_len, seed):
+    """The CUDA verifier's recurrence (its NumPy twin) against the JAX
+    package's lax.scan DP: distances exactly, f32 similarities bit for
+    bit."""
+    rng = np.random.default_rng(seed)
+    a = _strings(rng, 400, max_len)
+    b = _perturbed(rng, a[:200]) + _strings(rng, 200, max_len)
+    ca, la = encode_titles(a, max_len=max_len)
+    cb, lb = encode_titles(b, max_len=max_len)
+    d = bitvector_distance_np(ca, la, cb, lb)
+    np.testing.assert_array_equal(d, np.asarray(j_edit_distance(ca, la, cb,
+                                                                lb)))
+    mx = np.maximum(np.maximum(la, lb), 1).astype(np.float32)
+    sim = np.float32(1.0) - d.astype(np.float32) / mx
+    want = np.asarray(j_edit_similarity(ca, la, cb, lb))
+    assert sim.tobytes() == want.tobytes()
