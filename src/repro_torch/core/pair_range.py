@@ -115,7 +115,8 @@ def range_block_segments(plan: PairRangePlan, k: int) -> List[Tuple[int, int, in
     columns, a suffix-cut last column. This is the O(1)-per-block
     description the tile-catalog executor compiles to corner-cut masks —
     no per-pair materialization. Only blocks with a non-empty segment are
-    returned; coordinates are block-local.
+    returned; coordinates are block-local. The blocks of the range are
+    inverted in one elementwise pass (``invert_cell_index`` on arrays).
     """
     lo, hi = map(int, plan.bounds[k])
     if hi <= lo:
@@ -123,20 +124,18 @@ def range_block_segments(plan: PairRangePlan, k: int) -> List[Tuple[int, int, in
     sizes, offsets = plan.block_sizes, plan.offsets
     b_lo, _, _ = en.invert_pair_index(np.int64(lo), sizes, offsets)
     b_hi, _, _ = en.invert_pair_index(np.int64(hi - 1), sizes, offsets)
-    out = []
-    for blk in range(int(b_lo), int(b_hi) + 1):
-        n = int(sizes[blk])
-        npairs = int(plan.pair_counts[blk])
-        if npairs == 0:
-            continue
-        qlo = max(lo - int(offsets[blk]), 0)
-        qhi = min(hi - int(offsets[blk]), npairs) - 1
-        if qhi < qlo:
-            continue
-        x_lo, y_lo = (int(v) for v in en.invert_cell_index(np.int64(qlo), n))
-        x_hi, y_hi = (int(v) for v in en.invert_cell_index(np.int64(qhi), n))
-        out.append((blk, x_lo, y_lo, x_hi, y_hi))
-    return out
+    blk = np.arange(int(b_lo), int(b_hi) + 1)
+    npairs = np.asarray(plan.pair_counts, np.int64)[blk]
+    off = np.asarray(offsets, np.int64)[blk]
+    qlo = np.maximum(lo - off, 0)
+    qhi = np.minimum(hi - off, npairs) - 1
+    keep = (npairs > 0) & (qhi >= qlo)
+    blk, qlo, qhi = blk[keep], qlo[keep], qhi[keep]
+    n = np.asarray(sizes, np.int64)[blk]
+    x_lo, y_lo = en.invert_cell_index(qlo, n)
+    x_hi, y_hi = en.invert_cell_index(qhi, n)
+    return list(zip(blk.tolist(), x_lo.tolist(), y_lo.tolist(),
+                    x_hi.tolist(), y_hi.tolist()))
 
 
 def range_block_intervals(plan: PairRangePlan, k: int) -> List[Tuple[int, List[Tuple[int, int]]]]:

@@ -32,6 +32,7 @@ import torch
 from ...device import resolve_device, synchronize
 from ...sharding import (Sharded, all_gather, ppermute, psum, replicate,
                          shard_rows)
+from .. import trace
 from .comms import (COMMS_POLICIES, CommsPlan, halo_bytes_per_device,
                     plan_comms, psum_bytes_per_device, rewrite_tiles_local)
 from .faults import DeviceKilledError, FaultInjector, TransientScorerError
@@ -158,9 +159,10 @@ def _score_compact(fa, fb, group, *, threshold, bm, bn, capacity, impl,
             counts_t = torch.cat([counts_t[ends[i] - len(group[i][0]):ends[i]]
                                   for i in good])
         k = max(kmax[i] for i in good)
-        ra, rb = _decode_on_device(
-            torch.cat([launched[i][0][:, :k] for i in good]), counts_t,
-            torch.cat([group[i][1] for i in good]), sum(totals), bm, bn)
+        with trace.span("stage1.decode"):
+            ra, rb = _decode_on_device(
+                torch.cat([launched[i][0][:, :k] for i in good]), counts_t,
+                torch.cat([group[i][1] for i in good]), sum(totals), bm, bn)
     cuts = np.cumsum(totals)[:-1]
     out = [None] * len(group)
     for i, a, b in zip(good, np.split(ra, cuts), np.split(rb, cuts)):

@@ -75,6 +75,18 @@ def featurize(titles: Sequence[str], cfg) -> Tuple[np.ndarray, np.ndarray, np.nd
     return codes, lens, feats
 
 
+def _collect(matches: Set[Tuple[int, int]], hits) -> None:
+    """Add stage 2's hits, ``(a, b)`` arrays of entity ids, to
+    ``matches`` as ``(min, max)`` tuples of ints, leaving out a == b (the
+    match_⊥ job's self pairs), in the span ``pipeline.collect``."""
+    with trace.span("pipeline.collect"):
+        for a, b in hits:
+            keep = a != b
+            a, b = a[keep], b[keep]
+            matches.update(zip(np.minimum(a, b).tolist(),
+                               np.maximum(a, b).tolist()))
+
+
 def cross_restrict(matches: Set[Tuple[int, int]],
                    n_left: int) -> Set[Tuple[int, int]]:
     """Restrict a ``run_er`` match set over ``left ++ right`` to cross
@@ -511,14 +523,14 @@ def _run_er(titles, config, block_ids, fault_injector, feedback, mesh, axis,
         timings["stage1_s"] = s1.seconds
         timings["stage2_s"] = s2.seconds
         extra["candidates"] = int(ca.size)
-        for a, b in zip(to_global[ha], to_global[hb]):
-            matches.add((min(int(a), int(b)), max(int(a), int(b))))
+        _collect(matches, [(to_global[ha], to_global[hb])])
         if total:
             # Wall time attributed to reducers by planned load.
             reducer_seconds = ((s1.seconds + s2.seconds)
                                * reducer_pairs.astype(np.float64) / total)
     else:
         with trace.span("pipeline.reference") as ref:
+            hits = []
             for k, (ra, rb) in enumerate(_reference_reducer_rows(plan,
                                                                  cfg.r)):
                 if ra.size == 0:
@@ -528,8 +540,8 @@ def _run_er(titles, config, block_ids, fault_injector, feedback, mesh, axis,
                     g_feats, g_codes, g_lens, ra, rb,
                     cfg.threshold, cfg.filter_margin, dev, cfg.kernel_impl)
                 reducer_seconds[k] = time.perf_counter() - t0
-                for a, b in zip(to_global[ha], to_global[hb]):
-                    matches.add((min(int(a), int(b)), max(int(a), int(b))))
+                hits.append((to_global[ha], to_global[hb]))
+            _collect(matches, hits)
         timings["reference_s"] = ref.seconds
 
     # ---- match_⊥(R, R_∅): entities without blocking key vs everyone ----
@@ -566,11 +578,7 @@ def _run_er(titles, config, block_ids, fault_injector, feedback, mesh, axis,
                         feats_t, codes_t, lens_t, rr, null_idx[rs],
                         cfg.threshold, cfg.filter_margin, dev,
                         cfg.kernel_impl))
-            for ha, hb in hits:
-                for a, b in zip(ha, hb):
-                    a, b = int(a), int(b)
-                    if a != b:
-                        matches.add((min(a, b), max(a, b)))
+            _collect(matches, hits)
             total += plan2.total_pairs
             _sync()
         timings["cross_s"] = cross_sp.seconds

@@ -134,6 +134,38 @@ def test_random_bdm_pipelines_equal(sizes, r, m):
         np.testing.assert_array_equal(ts.tile_reducer, js.tile_reducer)
 
 
+@pytest.mark.parametrize("law", [(20_000, 0.04, 0.26), (6_000, 0.018, 0.71),
+                                 (400, 0.5, 0.9)])
+@pytest.mark.parametrize("r", [1, 7, 32, 200])
+def test_pair_range_segments_equal(law, r):
+    """PairRange's per-range block segments (one elementwise inversion a
+    range in the port) and the gather intervals and map-output size built
+    on them equal the JAX package's, on the DS2 and DS1 block laws and
+    with more ranges than some blocks have pairs."""
+    sizes = _law_sizes(*law)
+    bdm = np.repeat((sizes // 3)[:, None], 3, axis=1)
+    bdm[:, 0] += sizes % 3
+    jp, tp = jcore.plan_pair_range(bdm, r), tcore.plan_pair_range(bdm, r)
+    for k in range(r):
+        assert tcore.pair_range.range_block_segments(tp, k) == \
+            jcore.pair_range.range_block_segments(jp, k)
+        assert tcore.range_block_intervals(tp, k) == \
+            jcore.range_block_intervals(jp, k)
+    assert tcore.pair_range.map_output_size(tp) == \
+        jcore.pair_range.map_output_size(jp)
+
+
+def _law_sizes(n, head_frac, pair_share):
+    """Block sizes of a skewed law: a head block, a power-law tail and
+    some blocks of one entity (no pairs)."""
+    rng = np.random.default_rng(n)
+    head = int(head_frac * n)
+    tail = np.maximum(1, (n * pair_share / 40 / np.arange(1, n // 8)
+                          ** 0.9).astype(np.int64))
+    sizes = np.concatenate([[head], tail, np.ones(50, np.int64)])
+    return sizes[rng.permutation(sizes.size)]
+
+
 @given(sizes_strategy)
 @settings(max_examples=40, deadline=None)
 def test_port_pair_index_bijection(sizes):

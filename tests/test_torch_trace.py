@@ -136,15 +136,19 @@ def test_run_er_span_tree_and_timings_are_views_of_it():
     assert children(run) == sorted([
         "encode.featurize", "compiler.plan_job", "compiler.lower",
         "compiler.schedule", "pipeline.upload", "stage1.score",
-        "stage2.verify", "pipeline.cross"])
+        "stage2.verify", "pipeline.collect", "pipeline.cross"])
     assert children(names["compiler.plan_job"][0]) == ["compiler.job1"]
     cross = names["pipeline.cross"][0]
-    assert children(cross) == ["compiler.lower", "stage1.score",
-                               "stage2.verify"]
+    assert children(cross) == ["compiler.lower", "pipeline.collect",
+                               "stage1.score", "stage2.verify"]
     assert all(by_id[s["parent"]]["name"] in ("pipeline.run_er",
                                               "pipeline.cross",
-                                              "compiler.plan_job")
+                                              "compiler.plan_job",
+                                              "stage1.score")
                for s in spans if s["parent"] is not None)
+    # the survivors are decoded inside stage 1, once a job here
+    assert [by_id[s["parent"]]["name"] for s in names["stage1.decode"]] \
+        == ["stage1.score"] * 2
     main = [s for s in names["stage1.score"] if s["parent"] == run["id"]][0]
     verify = [s for s in names["stage2.verify"]
               if s["parent"] == run["id"]][0]
