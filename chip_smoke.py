@@ -51,6 +51,16 @@ The third slice (the dense kernel, tuning, the supervisor, the service):
                times of the kernel and of the plain loop (chunks of 8,192)
                beside the bound (bytes read once at 3.35 TB/s), and a whole
                ``verify_pairs`` call on either route on the host clock;
+  NG   featurize — the n-gram feature kernel (``csrc/ngram_features.cu``)
+               through ``featurize(device="cuda")`` on DS1's titles and on
+               the DS2 law's 1.39 M (``make_publications(1,390,000)``):
+               codes, lengths and features bit for bit the NumPy route's,
+               one launch a call, ``encode_stats`` one call on each route;
+               the wall time of ``featurize`` on both routes and of the
+               NumPy ``ngram_features`` alone, CUDA-event times of the
+               kernel beside the bound (bytes once at 3.35 TB/s); then
+               ``run_er`` at DS1, whose ``featurize`` must take the kernel
+               route (``encode_stats``, one launch);
   ER-t tuned   — ``run_er(tune_tiles=True)`` at DS1 for every strategy:
                the picked geometry, tiles, matches (equal to phase 4's) and
                stage-1 seconds beside 128x128's;
@@ -228,8 +238,8 @@ The last slice (the sharding-constraint hooks, ``sharding.set_mesh``):
                logits must be equal under ``torch.equal`` and the context
                must hold 24 layers x 2 records.
 
-Phases run in the order 1-6, D, ER-t, ER-f, ER-s, ER-m, BL, EX, LM-a, LM-b,
-SH, LM-c, LM-e, LM-d, T-a, T-b, LM-f, DR, then 7, the
+Phases run in the order 1-6, D, V, NG, ER-t, ER-f, ER-s, ER-m, BL, EX,
+LM-a, LM-b, SH, LM-c, LM-e, LM-d, T-a, T-b, LM-f, DR, then 7, the
 summary. The last two lines of standard output are the kernel
 summary and ``{"ok": true, "device": {...}}``. Without a card, or without the repo
 beside it, the script exits non-zero and prints no result.
@@ -1171,6 +1181,108 @@ def verify_phase(torch, np, ds):
             f"impl='torch' (host clock)")
         del c, n, ia, ib, sim, dist, want_d
     torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# NG: the n-gram feature kernel
+# ---------------------------------------------------------------------------
+
+NG_DS2_N = 1_390_000   # make_publications at the paper's DS2 size
+
+
+def ngram_phase(torch, np, ds):
+    """NG: ``featurize`` on DS1's titles and on the DS2 law's 1.39 M, on
+    the NumPy route and on the card (``kernels.ngram.ngram_features``, one
+    launch a call): codes, lengths and features equal bit for bit,
+    ``encode_stats`` one call on each route; the wall time of either
+    ``featurize`` call, the NumPy ``ngram_features`` alone on the host
+    clock, and CUDA-event times of the kernel beside its bound (codes,
+    lengths and features read or written once at 3.35 TB/s); then
+    ``run_er`` at DS1, whose ``featurize`` must take the kernel route."""
+    from repro_torch.er import (ERConfig, encode_stats, featurize,
+                                make_publications, run_er)
+    from repro_torch.er.encode import ngram_features
+    from repro_torch.kernels import ngram, ops
+
+    phase("NG featurize: the n-gram kernel (csrc/ngram_features.cu) vs the "
+          "NumPy route (er/encode.py)")
+    rows = {}
+    for label, titles, cfg in (
+            ("DS1", ds.titles, ERConfig()),
+            ("DS2-law", make_publications(NG_DS2_N, seed=1).titles,
+             ERConfig(prefix_len=4))):
+        before = dict(encode_stats)
+        t0 = time.perf_counter()
+        codes, lens, want = featurize(titles, cfg)
+        plain_s = time.perf_counter() - t0
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        c, n, got = featurize(titles, cfg, device="cuda")
+        card_s = time.perf_counter() - t0
+        moved = {k: encode_stats[k] - before[k] for k in before}
+        if moved != {"kernel_calls": 1, "kernel_rows": len(titles),
+                     "plain_calls": 1, "plain_rows": len(titles)}:
+            raise AssertionError(f"{label}: encode_stats moved by {moved} "
+                                 f"for one featurize call on each route")
+        if ops.launch_counts()["ngram_features"] != 1:
+            raise AssertionError(f"{ops.launch_counts()} for one call")
+        if not (np.array_equal(c.cpu().numpy(), codes)
+                and np.array_equal(n.cpu().numpy(), lens)):
+            raise AssertionError(f"{label}: codes or lengths differ")
+        bad = int((got.view(torch.int32).cpu().numpy()
+                   != want.view(np.int32)).sum())
+        if bad:
+            raise AssertionError(f"{label}: {bad} of {want.size} features "
+                                 f"differ from the NumPy route's bits")
+        t0 = time.perf_counter()
+        ngram_features(codes, dim=cfg.feature_dim, lengths=lens)
+        numpy_s = time.perf_counter() - t0
+        num, width = codes.shape
+        dim = cfg.feature_dim
+        # codes and lengths read once, the f32 features written once
+        nbytes = num * (width + 4 + 4 * dim)
+        bound = nbytes / PEAK_BYTES * 1e3
+
+        def kern(c=c, n=n, dim=dim):
+            return ngram.ngram_features(c, n, dim=dim)
+
+        k1 = _time_ms(torch, kern, 20)
+        k2 = _time_ms(torch, kern, 20)
+        ms = (k1 + k2) / 2
+        rows[label] = dict(rows=num, width=width, dim=dim, ms=ms,
+                           bound_ms=bound, bound_by="bytes", bytes=nbytes,
+                           plain_ms=numpy_s * 1e3, featurize_s=card_s,
+                           featurize_plain_s=plain_s)
+        log(f"{label}: {num} titles at width {width}, dim {dim}, mean "
+            f"length {float(lens.mean()):.1f}: features bit for bit the "
+            f"NumPy route's, one launch; featurize {card_s:.3f} s on the "
+            f"card vs {plain_s:.3f} s on the NumPy route (ngram_features "
+            f"alone {numpy_s:.3f} s); kernel {k1:.4f} / {k2:.4f} ms, bound "
+            f"{bound:.4f} ms (bytes: {nbytes / 1e6:.1f} MB at 3.35 TB/s) "
+            f"-> {bound / ms:.1%} of the bound, "
+            f"{numpy_s * 1e3 / ms:.0f}x the NumPy ngram_features")
+        del c, n, got
+        torch.cuda.empty_cache()
+
+    before = dict(encode_stats)
+    ops.reset_launch_counts()
+    res = run_er(ds.titles, ERConfig(), device="cuda")
+    moved = {k: encode_stats[k] - before[k] for k in before}
+    launches = ops.launch_counts()["ngram_features"]
+    if moved != {"kernel_calls": 1, "kernel_rows": len(ds.titles),
+                 "plain_calls": 0, "plain_rows": 0} or launches != 1:
+        raise AssertionError(f"run_er's featurize off the kernel route: "
+                             f"encode_stats moved by {moved}, {launches} "
+                             f"launches")
+    if len(res.matches) != DS1_PAIR_RANGE["matches"]:
+        raise AssertionError(f"run_er on the kernel route: "
+                             f"{len(res.matches)} matches")
+    log(f"run_er at DS1: featurize on the kernel route (encode_stats "
+        f"{moved}, 1 launch), {len(res.matches)} matches, featurize "
+        f"{res.extra['timings']['featurize_s']:.3f} s, upload "
+        f"{res.extra['timings']['upload_s']:.3f} s")
+    rows["DS1"]["launches"] = launches
     return rows
 
 
@@ -3423,6 +3535,7 @@ def main() -> int:
     times = timing_phase(torch, np, ds, kstats)
     dstats, dense_launches, dense_times = dense_phase(torch, np, ds)
     verify_times = verify_phase(torch, np, ds)
+    ngram_times = ngram_phase(torch, np, ds)
     er_tuned_phase(ds, ds1_rows)
     er_faults_phase(ds)
     er_s_launches, er_s = er_service_phase(torch, np, ds)
@@ -3524,6 +3637,21 @@ def main() -> int:
         tolerance="exact: distances equal, similarities bit for bit",
         **verify_times["DS1"],
         **{f"ds2_{k}": v for k, v in verify_times["DS2-law"].items()}))
+    summary.append(dict(
+        name="ngram_features", route="cuda",
+        source="src/repro_torch/csrc/ngram_features.cu",
+        replaces="none: src/repro/er/encode.py::ngram_features is NumPy on "
+                 "the host (the plain route)",
+        launches=ngram_times["DS1"]["launches"],
+        path="DS1 pair_range run_er (featurize); times in phase NG on "
+             "DS1's titles, ds2_* on the DS2 law's 1.39 M "
+             "(make_publications(1,390,000), prefix_len 4); plain_ms: the "
+             "NumPy ngram_features on the host clock; featurize_s: a whole "
+             "featurize call on the card route, featurize_plain_s on the "
+             "NumPy route",
+        tolerance="exact: features bit for bit",
+        **{k: v for k, v in ngram_times["DS1"].items() if k != "launches"},
+        **{f"ds2_{k}": v for k, v in ngram_times["DS2-law"].items()}))
     flash = lm_times["flash_attention"]
     phi3 = lm_times["flash_attention[phi-3-vision]"]
     summary.append(dict(

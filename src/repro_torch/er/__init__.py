@@ -40,7 +40,8 @@ from .compiler import (  # noqa: F401
 )
 from .executor import build_catalog  # noqa: F401
 from .pipeline import (ERConfig, ERResult, JobPlan, compile_catalog,  # noqa: F401
-                       cross_restrict, featurize, plan_job, run_er)
+                       cross_restrict, encode_stats, featurize, plan_job,
+                       run_er)
 from .service import (  # noqa: F401
     ERService,
     MatchResponse,

@@ -49,10 +49,10 @@ from ..core.sorted_neighborhood import (
 )
 from ..core.two_source import TwoSourceBDM, plan_pair_range_2src, pairs_of_range_2src
 from ..device import resolve_device, synchronize
-from ..kernels.ops import IMPLS
+from ..kernels import ngram, ops
 from ..sharding import shard_rows
 from .blocking import prefix_block_ids, sn_sort_order
-from .encode import encode_titles, ngram_features
+from .encode import encode_titles
 from . import trace
 from .compiler import (COMMS_POLICIES, EwmaCostModel, MatchJob, Schedule,
                        TileCatalog, apply_schedule, autotune, cross_job,
@@ -61,18 +61,45 @@ from .compiler import (COMMS_POLICIES, EwmaCostModel, MatchJob, Schedule,
 from .compiler.execute import execute, verify_pairs
 
 __all__ = ["ERConfig", "ERResult", "JobPlan", "run_er", "plan_job",
-           "compile_catalog", "featurize", "cross_restrict"]
+           "compile_catalog", "featurize", "cross_restrict", "encode_stats"]
 
 _CHUNK = 65_536
 
+# Host-side instrumentation of featurization, accumulated over calls: calls
+# of :func:`featurize` and the titles they featurized, on the CUDA kernel
+# route (``kernels/ngram.py``, one launch a call) and on the NumPy route
+# (``encode.ngram_features``).
+encode_stats: dict = {"kernel_calls": 0, "kernel_rows": 0,
+                      "plain_calls": 0, "plain_rows": 0}
 
-def featurize(titles: Sequence[str], cfg) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+
+def featurize(titles: Sequence[str], cfg, device=None):
     """(codes, lens) for the exact stage-2 verifier plus the hashed n-gram
-    filter features, all numpy. ``cfg`` needs ``max_len`` and
-    ``feature_dim``."""
+    filter features. ``cfg`` needs ``max_len`` and ``feature_dim``; its
+    ``kernel_impl`` (default "auto") picks the route for ``device``.
+
+    Without ``device`` the NumPy route makes them on the host and all
+    three are NumPy, whatever ``kernel_impl`` says. With one, all three
+    are tensors on it, in input order: on a CUDA device the codes and
+    lengths go up once and the n-gram kernel makes the features there; on
+    a CPU device or under ``kernel_impl="torch"`` the NumPy route makes
+    them on the host. Both routes give the same features bit for bit."""
     codes, lens = encode_titles(titles, max_len=cfg.max_len)
-    feats = ngram_features(codes, dim=cfg.feature_dim, lengths=lens)
-    return codes, lens, feats
+    dev = None if device is None else resolve_device(device)
+    on_card = dev is not None and ops.resolve_impl(
+        getattr(cfg, "kernel_impl", "auto"), dev) == "cuda"
+    home = dev if on_card else torch.device("cpu")
+    codes_t = torch.from_numpy(codes).to(home)
+    lens_t = torch.from_numpy(lens).to(home)
+    feats = ngram.ngram_features(codes_t, lens_t, dim=cfg.feature_dim,
+                                 impl="cuda" if on_card else "torch")
+    route = "kernel" if on_card else "plain"
+    encode_stats[f"{route}_calls"] += 1
+    encode_stats[f"{route}_rows"] += len(codes)
+    if device is None:
+        return codes, lens, feats.numpy()
+    synchronize([dev])
+    return codes_t.to(dev), lens_t.to(dev), feats.to(dev)
 
 
 def _collect(matches: Set[Tuple[int, int]], hits) -> None:
@@ -402,7 +429,7 @@ def _run_er(titles, config, block_ids, fault_injector, feedback, mesh, axis,
     cfg = config if config is not None else ERConfig()
     if cfg.executor not in ("catalog", "reference"):
         raise ValueError(f"unknown executor {cfg.executor!r}")
-    if cfg.kernel_impl not in IMPLS:
+    if cfg.kernel_impl not in ops.IMPLS:
         raise ValueError(f"unknown kernel_impl {cfg.kernel_impl!r}")
     supervised = cfg.supervised_devices > 0 or fault_injector is not None
     if supervised and cfg.executor != "catalog":
@@ -428,8 +455,13 @@ def _run_er(titles, config, block_ids, fault_injector, feedback, mesh, axis,
         synchronize(devices)
 
     timings: Dict[str, float] = {}
+    # On the card the features are made there; a mesh keeps the host route
+    # (whatever kernel_impl says) and lays its shards out from there.
     with trace.span("encode.featurize") as sp:
-        codes, lens, feats = featurize(titles, cfg)
+        if mesh is None:
+            codes, lens, feats = featurize(titles, cfg, device=dev)
+        else:
+            codes, lens, feats = map(torch.from_numpy, featurize(titles, cfg))
     timings["featurize_s"] = sp.seconds
 
     extra: Dict = {"timings": timings}
@@ -496,15 +528,20 @@ def _run_er(titles, config, block_ids, fault_injector, feedback, mesh, axis,
 
     # ---- features and codes in blocked (or sorted) order, on the device
     # (on a mesh: the zero-padded features, row-sharded over its devices)
+    cross = bool(cfg.match_missing_keys and null_idx is not None
+                 and null_idx.size)
     with trace.span("pipeline.upload") as sp:
+        rows = torch.from_numpy(to_global).to(feats.device)
+        g_codes, g_lens = codes[rows].to(dev), lens[rows].to(dev)
         if layout is None:
-            g_feats = torch.from_numpy(feats[to_global]).to(dev)
+            g_feats = feats[rows].to(dev)
         else:
-            padded = np.zeros((layout.rows, layout.cols), feats.dtype)
-            padded[:to_global.size, :feats.shape[1]] = feats[to_global]
+            padded = feats.new_zeros((layout.rows, layout.cols))
+            padded[:to_global.size, :feats.shape[1]] = feats[rows]
             g_feats = shard_rows(padded, mesh.grid(axis, layout.model_axis))
-        g_codes = torch.from_numpy(codes[to_global]).to(dev)
-        g_lens = torch.from_numpy(lens[to_global]).to(dev)
+        if not cross:
+            # only match_⊥ reads the input-order matrices
+            codes = lens = feats = None
         _sync()
     timings["upload_s"] = sp.seconds
 
@@ -545,16 +582,15 @@ def _run_er(titles, config, block_ids, fault_injector, feedback, mesh, axis,
         timings["reference_s"] = ref.seconds
 
     # ---- match_⊥(R, R_∅): entities without blocking key vs everyone ----
-    if cfg.match_missing_keys and null_idx is not None and null_idx.size:
+    if cross:
         with trace.span("pipeline.cross") as cross_sp:
             bdm2 = TwoSourceBDM(
                 bdm_r=np.full((1, 1), n, np.int64),
                 bdm_s=np.full((1, 1), null_idx.size, np.int64))
             plan2 = plan_pair_range_2src(bdm2, cfg.r)
             extra["null_key_pairs"] = plan2.total_pairs
-            feats_t = torch.from_numpy(feats).to(dev)
-            codes_t = torch.from_numpy(codes).to(dev)
-            lens_t = torch.from_numpy(lens).to(dev)
+            feats_t, codes_t, lens_t = (x.to(dev) for x in (feats, codes,
+                                                            lens))
             null_t = torch.from_numpy(null_idx).to(dev)
             if cfg.executor == "catalog":
                 with trace.span("compiler.lower"):

@@ -402,7 +402,15 @@ class ERService:
         keyed_idx = np.flatnonzero(block_ids >= 0)
         self._null_idx = np.flatnonzero(block_ids < 0)
 
-        codes, lens, feats = featurize(self._titles, cfg)
+        # Bulk ingest featurizes on the card (a mesh keeps the host route,
+        # whatever kernel_impl says, and shards from there); per-batch
+        # queries stay on the host (``_plan_jobs``).
+        if mesh is None:
+            codes, lens, feats = featurize(self._titles, cfg,
+                                           device=self.device)
+        else:
+            codes, lens, feats = map(torch.from_numpy,
+                                     featurize(self._titles, cfg))
 
         # ---- Job 1 once: BDM + blocked layout, then stay resident ----
         kb, kp = block_ids[keyed_idx], part_ids[keyed_idx]
@@ -413,16 +421,18 @@ class ERService:
 
         # Resident device-side matrices, one set per job kind: the
         # filter features (f32; sharded over a mesh) and the verifier's
-        # codes and lengths.
-        self._feats_keyed = self._resident_feats(feats[self._to_global])
+        # codes and lengths, gathered where they were featurized.
+        keyed = torch.from_numpy(self._to_global).to(feats.device)
+        null = torch.from_numpy(self._null_idx).to(feats.device)
+        self._feats_keyed = self._resident_feats(feats[keyed])
         self._feats_all = self._resident_feats(feats)
-        self._feats_null = self._resident_feats(feats[self._null_idx])
-        self._k_codes = self._resident(codes[self._to_global])
-        self._k_lens = self._resident(lens[self._to_global])
+        self._feats_null = self._resident_feats(feats[null])
+        self._k_codes = self._resident(codes[keyed])
+        self._k_lens = self._resident(lens[keyed])
         self._codes = self._resident(codes)
         self._lens = self._resident(lens)
-        self._n_codes = self._resident(codes[self._null_idx])
-        self._n_lens = self._resident(lens[self._null_idx])
+        self._n_codes = self._resident(codes[null])
+        self._n_lens = self._resident(lens[null])
         self._sync()
         self.ingest_seconds = time.perf_counter() - t0
 
@@ -523,15 +533,15 @@ class ERService:
     # Residency and fixed-shape scoring
     # ------------------------------------------------------------------
 
-    def _resident(self, x: np.ndarray):
-        """Move a host matrix onto the service's device once, contiguous
-        (features f32, codes and lengths as they are). Empty matrices
-        stay None (their job is skipped)."""
+    def _resident(self, x: torch.Tensor):
+        """A matrix on the service's device, contiguous (features f32,
+        codes and lengths as they are). Empty matrices stay None (their
+        job is skipped)."""
         if x.shape[0] == 0:
             return None
-        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+        return x.to(self.device).contiguous()
 
-    def _resident_feats(self, feats: np.ndarray):
+    def _resident_feats(self, feats: torch.Tensor):
         """A feature matrix on the device, or on a mesh zero-padded to the
         residency row multiple and row-sharded over its devices (tiles'
         validity windows never reach the padding). Empty matrices stay
@@ -540,8 +550,7 @@ class ERService:
             return self._resident(feats)
         pad = (-feats.shape[0]) % self._row_mult
         if pad:
-            feats = np.concatenate(
-                [feats, np.zeros((pad, feats.shape[1]), feats.dtype)], axis=0)
+            feats = torch.cat([feats, feats.new_zeros((pad, feats.shape[1]))])
         return shard_rows(feats, self._grid)
 
     def _bucket(self, nq: int) -> int:

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from . import edit_distance, flash_attention, grouped_mm, pair_sim, ref
+from . import edit_distance, flash_attention, grouped_mm, ngram, pair_sim, ref
 
 __all__ = ["IMPLS", "resolve_impl", "pair_scores", "pair_scores_catalog",
            "pair_scores_catalog_compact", "pair_scores_catalog_raw",
@@ -142,7 +142,7 @@ def attention(q, k, v, *, causal: bool = True, scale=None,
 
 _COUNTERS = (pair_sim.LAUNCHES, flash_attention.LAUNCHES,
              grouped_mm.LAUNCHES, grouped_mm.BLOCK_T_LAUNCHES,
-             edit_distance.LAUNCHES)
+             edit_distance.LAUNCHES, ngram.LAUNCHES)
 
 
 def launch_counts() -> dict:
@@ -150,7 +150,8 @@ def launch_counts() -> dict:
     grouped kernel's launches per block_t (``grouped_matmul[block_t=8]``
     and ``[block_t=128]``)."""
     counts = {**pair_sim.LAUNCHES, **flash_attention.LAUNCHES,
-              **grouped_mm.LAUNCHES, **edit_distance.LAUNCHES}
+              **grouped_mm.LAUNCHES, **edit_distance.LAUNCHES,
+              **ngram.LAUNCHES}
     for bt, n in grouped_mm.BLOCK_T_LAUNCHES.items():
         counts[f"grouped_matmul[block_t={bt}]"] = n
     return counts
